@@ -9,25 +9,37 @@ one) and the CUDA toolkit's ``nvcc``; it imports nothing of JAX or of the
 JAX package.  Phases, in order — any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the block-sparse kernels K1 (SKIP) and K2 (GATE) from
-   ``src/repro_torch/kernels/block_mm/csrc`` with nvcc for sm_90a;
+2. build: compile the block-sparse kernels K1 (SKIP) and K2 (GATE) and
+   the N:M kernel K3 from ``src/repro_torch/kernels/*/csrc`` with nvcc
+   for sm_90a, one nvcc per source, started together;
 3. kernels: K1 and K2 against their plain PyTorch versions on the
    qwen2-0.5b full-width decode cells (batch 8: ffn_gate_up 8x896x9728
    and lm_head 8x896x151936, 64-wide blocks, density 0.25, seed 0) and
-   one bf16 cell at the ffn_down shape (128x4864x896), with kernel,
-   plain, library (torch.matmul) and bound times;
+   one bf16 cell at the ffn_down shape (128x4864x896); K3 against its
+   plain version at 2:4 on the same two f32 cells and the bf16 cell,
+   with int8 and with bit-packed offsets; each with kernel, plain,
+   library (torch.matmul) and bound times;
 4. model: the whole mapspace of each of the four ResNet50 layers
    (833,400 candidates) searched on the card through ``mapper.search``;
    each winner re-validated by the scalar oracle, 512 sampled
    candidates per layer held to the scalar oracle, one program shared
    by the four layers;
-5. agreement: the model's skip-time, gate-time and skip-vs-gate
-   predictions against K1/K2 timed with CUDA events on the two qwen2
-   cells.
+5. fleet: ``fleet_sweep`` over the 10 architectures at full width on
+   the card (production mesh, prefill + decode, crossover grid): 178
+   entries, 142 unique shapes, programs within ``compile_bound``, 64
+   sampled rows held to the scalar oracle, and the advisor's verdicts
+   for qwen2-0.5b;
+6. agreement: ``validate_fleet`` with all five arms on qwen2-0.5b at
+   full width, decode batch 8 (the ffn_gate_up and lm_head cells): the
+   model's skip-time, gate-time and skip-vs-gate predictions against
+   K1/K2, the advisor's N:M traffic verdict against the packed bytes,
+   and K3's error against the dense product of the pruned weight;
+7. profile: where one warm engine evaluation of a ResNet50 layer's
+   mapspace goes on the card.
 
-Phases 4 and 5 are the main path: the kernels' launch counters are set
-to 0 just before them and read just after.  The last lines are the
-``kernels`` JSON object, the nvidia-smi line, and
+Phases 4-6 are the main path: before each, every kernel's launch
+counter is set to 0, and it is read right after.  The last lines are
+the ``kernels`` JSON object, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -37,6 +49,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -62,8 +75,16 @@ MAPSPACE_SIZES = {"conv2_x": 282_240, "conv3_x": 291_600,
 #: every layer so the four searches share one bucket and one program
 PERMUTATIONS = {0: ("n", "k", "m"), 1: ("m", "n", "k"), 2: ("m", "n", "k")}
 SAMPLES = 512
+#: the N:M pattern of the K3 cells and of the agreement harness
+NM = (2, 4)
+#: fleet rows held to the scalar oracle
+FLEET_SAMPLES = 64
+#: unique fleet shapes in the traced evaluation pass
+PROFILE_SHAPES = 24
 F32_TOL = 1e-5          # max|kernel - plain| / max|plain|
-BF16_TOL = 0.3          # atol = rtol of the JAX package's bf16 kernel test
+BF16_TOL = 0.3          # atol = rtol of the JAX package's bf16 block test
+NM_BF16_TOL = 0.25      # atol = rtol of the JAX package's bf16 N:M test
+ORACLE_REL = 1e-6       # batched engine vs the scalar oracle
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 L2_BYTES = 50 * 2 ** 20
@@ -121,15 +142,37 @@ def bound_ms(byte_count: float, ops: float, dtype) -> tuple[float, str]:
 
 
 # ----------------------------------------------------------------------
+def _libraries():
+    from repro_torch.kernels.block_mm.ops import LIBRARY as block_mm
+    from repro_torch.kernels.nm_spmm.ops import LIBRARY as nm_spmm
+    return (block_mm, nm_spmm)
+
+
 def phase_build() -> dict:
-    from repro_torch.kernels.block_mm import ops
+    """Every kernel source built at once (one nvcc each) and loaded; the
+    compiler's reports go to ``chiprun_out/<source>_ptxas.txt``."""
+    libs = _libraries()
     t0 = time.perf_counter()
-    ops._lib()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        paths = list(pool.map(lambda lib: lib.build(), libs))
+    for lib in libs:
+        lib.lib()
     dt = time.perf_counter() - t0
-    print(f"[build] block_mm.cu -> {ops.build().name} in {dt:.2f} s")
-    log = _root() / "chiprun_out" / "block_mm_ptxas.txt"
-    log.parent.mkdir(exist_ok=True)
-    log.write_text(ops.build_log)
+    out_dir = _root() / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    for lib, path in zip(libs, paths):
+        (out_dir / f"{lib.src.stem}_ptxas.txt").write_text(lib.log)
+        regs = [int(w) for line in lib.log.splitlines() if "Used" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt.startswith("registers")]
+        spills = sum(1 for line in lib.log.splitlines()
+                     if "bytes spill stores" in line
+                     and not line.split("bytes spill stores")[0].rstrip()
+                     .endswith(" 0"))
+        print(f"[build] {lib.src.name} -> {path.name}: {len(regs)} kernels, "
+              f"at most {max(regs, default=0)} registers, {spills} with "
+              f"spills")
+    print(f"[build] all sources in {dt:.2f} s")
     return {"seconds": dt}
 
 
@@ -144,14 +187,15 @@ def _cell_inputs(M, K, N, dtype, device):
     return x
 
 
-def _compare(got, want, dtype) -> tuple[float, float, bool]:
+def _compare(got, want, dtype, bf16_tol=BF16_TOL
+             ) -> tuple[float, float, bool]:
     err = float((got - want).abs().max())
     rel = err / max(1e-30, float(want.abs().max()))
     if dtype == torch.float32:
         ok = rel <= F32_TOL
     else:
         ok = bool(((got - want).abs()
-                   <= BF16_TOL + BF16_TOL * want.abs()).all())
+                   <= bf16_tol + bf16_tol * want.abs()).all())
     return err, rel, ok
 
 
@@ -222,6 +266,76 @@ def phase_kernels(device="cuda", cells=None, timed=True) -> dict:
                 del sets
             rows[name].append(row)
             print(f"[kernels] {name} {layer} {row}")
+    return rows
+
+
+def phase_nm_kernels(device="cuda", cells=None, timed=True) -> list:
+    """K3 against its plain version at 2:4, with int8 and with packed
+    offsets; returns one row per (cell, offsets layout)."""
+    from repro_torch.kernels.nm_spmm.ops import nm_spmm, nm_spmm_plain
+    from repro_torch.sparsity import (nm_prune_dense, offsets_bits,
+                                      pack_nm, pack_offsets)
+    n, m = NM
+    cells = cells or ([(c, M, K, N, torch.float32)
+                       for c, M, K, N in QWEN2_CELLS]
+                      + [(*BF16_CELL, torch.bfloat16)])
+    rows = []
+    for layer, M, K, N, dtype in cells:
+        rng = np.random.default_rng(SEED)
+        a = torch.from_numpy(rng.standard_normal((M, K)).astype(
+            np.float32)).to(device)
+        w = torch.from_numpy(rng.standard_normal((K, N)).astype(
+            np.float32)).to(device)
+        w_nm = nm_prune_dense(w, n, m)
+        vals, idx = pack_nm(w_nm, n, m)
+        a, vals, w_nm = a.to(dtype), vals.to(dtype), w_nm.to(dtype)
+        del w
+        elt = a.element_size()
+        kc = vals.shape[0]
+        for packed, offs in ((False, idx), (True, pack_offsets(idx, m))):
+            kw = dict(n=n, m=m, bm=BS, bk=BS, bn=BS, packed=packed)
+
+            def kern(a_, v_, o_):
+                return nm_spmm(a_, v_, o_, **kw)
+
+            def plain(a_, v_, o_):
+                return nm_spmm_plain(a_, v_, o_, **kw)
+
+            got, want = kern(a, vals, offs), plain(a, vals, offs)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            err, rel, ok = _compare(got, want, dtype, NM_BF16_TOL)
+            row = {"cell": layer, "shape": [M, K, N],
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "packed": packed, "offset_bits": offsets_bits(m)
+                   if packed else 8, "bm_bk_bn": [min(BS, M), BS, BS],
+                   "max_abs_err": err, "rel_err": rel}
+            if not ok:
+                raise AssertionError(f"nm_spmm disagrees with its plain "
+                                     f"version on {layer}: {row}")
+            if timed:
+                # the bytes the function must move: A, the kept values,
+                # the offsets in the layout used, the f32 output
+                byte_count = (M * K * elt + vals.numel() * elt
+                              + offs.numel() * offs.element_size()
+                              + M * N * 4)
+                ops = 2.0 * M * kc * N     # the kept multiply-adds only
+                b_ms, b_by = bound_ms(byte_count, ops, dtype)
+                per_set = byte_count - M * N * 4
+                n_sets = max(1, math.ceil(2 * L2_BYTES / per_set))
+                sets = [(a.clone(), vals.clone(), offs.clone())
+                        for _ in range(n_sets)]
+                row.update(ms=time_ms(kern, sets, graph=True),
+                           plain_ms=time_ms(plain, sets, graph=False))
+                # the yardstick: the dense product with the pruned W
+                sets = [(s[0], w_nm.clone()) for s in sets]
+                row.update(library_ms=time_ms(torch.matmul, sets,
+                                              graph=True),
+                           bound_ms=b_ms, bound_by=b_by, bytes=byte_count,
+                           ops=ops, input_sets=n_sets)
+                del sets
+            rows.append(row)
+            print(f"[kernels] nm_spmm {layer} {row}")
     return rows
 
 
@@ -339,8 +453,6 @@ def phase_profile(layer=RESNET50_LAYERS[0], device="cuda") -> dict:
     """Where one warm engine evaluation of a whole layer's mapspace goes
     on the card: wall seconds, device-busy seconds and kernel launches
     from a ``torch.profiler`` trace."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import Sparseloop, matmul
     from repro_torch.core.mapper import MapspaceConstraints
     from repro_torch.core.presets import scnn_like, three_level_arch
@@ -358,58 +470,171 @@ def phase_profile(layer=RESNET50_LAYERS[0], device="cuda") -> dict:
     t0 = time.perf_counter()
     model.evaluate(padded, ids)
     warm = time.perf_counter() - t0
+    out = {"layer": name, "candidates": len(bounds), "warm_s": warm,
+           **_device_busy(lambda: model.evaluate(padded, ids), device)}
+    print(f"[profile] {json.dumps(out)}")
+    return out
+
+
+def _oracle_nest(M: int, K: int, N: int):
+    """``tpu_mapping(M, K, N)`` as the scalar oracle must see it: with its
+    unit-bound loops dropped, which is how the batched engine lowers a
+    bound-1 slot (``NestTemplate.nest_with``)."""
+    from repro_torch.core.advisor import tpu_mapping
+    from repro_torch.core.mapping import LoopNest
+    nest = tpu_mapping(M, K, N)
+    return LoopNest(loops=tuple(lp for lp in nest.loops if lp.bound > 1),
+                    num_levels=nest.num_levels)
+
+
+def _device_busy(fn, device) -> dict:
+    """Wall seconds, device-busy seconds and device events of one call
+    of ``fn``, from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if device != "cpu":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        model.evaluate(padded, ids)
+        fn()
+        if device != "cpu":
+            torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
-    out = {"layer": name, "candidates": len(bounds), "warm_s": warm,
-           "traced_s": traced, "device_busy_s": busy,
-           "device_events": len(dev),
-           "idle_share": 1.0 - busy / traced if traced else None}
-    print(f"[profile] {json.dumps(out)}")
+    return {"traced_s": traced, "device_busy_s": busy,
+            "device_events": len(dev),
+            "idle_share": 1.0 - busy / traced if traced else None}
+
+
+def phase_fleet(device="cuda", configs=None, reduced=False,
+                samples=FLEET_SAMPLES, expect=(178, 142)) -> dict:
+    """The fleet sweep at full width on ``device``: every architecture,
+    prefill + decode, production mesh, crossover grid; sampled rows held
+    to the scalar oracle; the advisor's verdicts for qwen2-0.5b."""
+    from repro_torch import obs
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.core import Sparseloop, compile_stats, matmul
+    from repro_torch.core.advisor import advise, describe
+    from repro_torch.core.batched import clear_caches
+    from repro_torch.fleet.sweep import (_evaluate_shapes, default_options,
+                                         fleet_sweep)
+    dev = None if device == "cuda" else device
+    configs = tuple(configs or ARCH_NAMES)
+    clear_caches()
+    obs.enable()
+    try:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with compile_stats.track() as st:
+            rep = fleet_sweep(configs, reduced=reduced, crossover=True,
+                              device=dev)
+        wall = time.perf_counter() - t0
+        spans = {name: obs.tracer().total(name) for name in
+                 ("fleet.extract", "fleet.option", "fleet.crossover")}
+    finally:
+        obs.disable()
+    if expect and (rep.total_entries, rep.unique_shapes) != expect:
+        raise AssertionError(f"fleet: {rep.total_entries} entries, "
+                             f"{rep.unique_shapes} unique shapes; expected "
+                             f"{expect}")
+    if (st.programs > rep.compile_bound or st.compiles > rep.compile_bound
+            or st.scalar_evals):
+        raise AssertionError(f"fleet: programs {st.programs}, compiles "
+                             f"{st.compiles}, scalar evals "
+                             f"{st.scalar_evals} against the bound "
+                             f"{rep.compile_bound}")
+    print(f"[fleet] {rep.summary()}")
+    # sampled rows, every option, against the scalar oracle
+    opts = {o.name: o for o in default_options()}
+    pick = np.random.default_rng(0).choice(
+        len(rep.rows), min(samples, len(rep.rows)), replace=False)
+    worst, checked = 0.0, 0
+    for i in pick:
+        r = rep.rows[i]
+        for name, got in r.options.items():
+            o = opts[name]
+            ev = Sparseloop(o.design).evaluate(
+                matmul(r.M, r.K, r.N, densities=o.densities),
+                _oracle_nest(r.M, r.K, r.N), check_capacity=False)
+            for key, ref in (("cycles", ev.cycles),
+                             ("energy_pj", ev.energy_pj),
+                             ("edp", ev.edp)):
+                worst = max(worst, abs(got[key] - ref)
+                            / max(abs(ref), 1e-300))
+            checked += 1
+    if worst > ORACLE_REL:
+        raise AssertionError(f"fleet: sampled rows differ from the scalar "
+                             f"oracle by {worst:.3e}")
+    t0 = time.perf_counter()
+    adv = advise(get_config(configs[0] if reduced else "qwen2-0.5b",
+                            reduced=reduced), device=dev)
+    adv_s = time.perf_counter() - t0
+    print(describe(adv))
+    # where the evaluations go: a trace of one option over a slice of
+    # the unique shapes (the profiler's own bookkeeping grows with the
+    # ~1,000 device events of each single-shape evaluation)
+    shapes = sorted({(r.M, r.K, r.N) for r in rep.rows})[:PROFILE_SHAPES]
+    busy = _device_busy(lambda: _evaluate_shapes(
+        opts["dense"], shapes, device=dev), device)
+    busy["shapes"] = len(shapes)
+    out = {"device": torch.cuda.get_device_name(0) if device != "cpu"
+           else "cpu", "configs": len(configs),
+           "entries": rep.total_entries, "unique_shapes": rep.unique_shapes,
+           "options": list(rep.option_names),
+           "compile_bound": rep.compile_bound, "programs": st.programs,
+           "compiles": st.compiles, "wall_s": wall,
+           "compile_s": st.compile_seconds, "eval_s": st.eval_seconds,
+           "evaluations": st.batched_evals, "dedup_evals": st.dedup_evals,
+           "spans_s": spans,
+           "crossover_kn": len(rep.crossover),
+           "compress_rows": sum(r.verdict == "compress" for r in rep.rows),
+           "sampled_rows": len(pick), "sampled_evals": checked,
+           "max_rel_err_sampled": worst, "advise_s": adv_s,
+           "advise": [dict(layer=a.layer, shape=[a.M, a.K, a.N],
+                           bottleneck=a.dense_bottleneck, best=a.best_name,
+                           speedup=a.speedup) for a in adv],
+           "traced_pass": busy}
+    print(f"[fleet] {json.dumps(out)}")
     return out
 
 
-def phase_agreement(device="cuda", cells=QWEN2_CELLS, reps=5) -> list:
-    from repro_torch.fleet.validate import (_measure_block_cell,
-                                            _predict_block,
-                                            agreement_summary, block_rows,
-                                            kernel_cell)
-    padded = [(layer, kernel_cell(M, K, N, bs=BS)) for layer, M, K, N
-              in cells]
-    shapes = [c for _, c in padded]
-    pred = _predict_block(shapes, density=DENSITY,
+def phase_agreement(device="cuda", configs=("qwen2-0.5b",),
+                    reduced=False, reps=5, cells=QWEN2_CELLS) -> list:
+    """``validate_fleet`` with all five arms on ``device``."""
+    from repro_torch.fleet.validate import (ALL_ARMS, agreement_summary,
+                                            validate_fleet)
+    rows = validate_fleet(configs, reduced=reduced, batch=8,
+                          arms=ALL_ARMS, reps=reps,
                           device=None if device == "cuda" else device)
-    rows = []
-    for i, (layer, cell) in enumerate(padded):
-        meas = _measure_block_cell(*cell, density=DENSITY, bs=BS,
-                                   reps=reps, seed=SEED,
-                                   device=None if device == "cuda"
-                                   else device)
-        if meas["rel_err"] > F32_TOL:
-            raise AssertionError(f"agreement cell {layer}: kernel error "
-                                 f"{meas['rel_err']:.3e} > {F32_TOL}")
-        print(f"[agreement] {layer} {json.dumps(meas)}")
-        rows += block_rows("qwen2-0.5b", layer, cell, meas,
-                           pred["dense"][i], pred["skip"][i],
-                           pred["gate"][i])
+    got = sorted({(r.layer, r.M, r.K, r.N) for r in rows})
+    if cells is not None and got != sorted(cells):
+        raise AssertionError(f"agreement cells {got}, expected {cells}")
+    if len(rows) != len(ALL_ARMS) * len(got):
+        raise AssertionError(f"{len(rows)} agreement rows for {len(got)} "
+                             f"cells")
     for r in rows:
         print(f"[agreement] {json.dumps(r.as_dict())}")
+        if r.arm == "nm-correct" and not r.measured < 1e-3:
+            raise AssertionError(f"nm_spmm error {r.measured:.3e} on "
+                                 f"{r.layer}")
     print(agreement_summary(rows))
     return rows
 
 
 KERNELS = (
     ("skip_mm", "K1 SKIP block-sparse matmul",
-     "src/repro/kernels/block_mm/kernel.py:95"),
+     "src/repro/kernels/block_mm/kernel.py:95",
+     "src/repro_torch/kernels/block_mm/csrc/block_mm.cu"),
     ("gated_mm", "K2 GATE block-sparse matmul",
-     "src/repro/kernels/block_mm/kernel.py:49"),
+     "src/repro/kernels/block_mm/kernel.py:49",
+     "src/repro_torch/kernels/block_mm/csrc/block_mm.cu"),
+    ("nm_spmm", "K3 N:M structured-sparse matmul (2:4, int8 offsets; "
+     "packed offsets in cells)",
+     "src/repro/kernels/nm_spmm/kernel.py:66",
+     "src/repro_torch/kernels/nm_spmm/csrc/nm_spmm.cu"),
 )
 
 
@@ -419,6 +644,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(_root() / "src"))
     from repro_torch.kernels.block_mm import ops
+    from repro_torch.kernels.nm_spmm import ops as nm_ops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -428,14 +654,27 @@ def main() -> int:
     t_start = time.perf_counter()
     build = phase_build()
     kernel_rows = phase_kernels()
+    kernel_rows["nm_spmm"] = phase_nm_kernels()
 
-    # ---- the main path: counters from 0, read right after ----
-    ops.skip_mm.launches = 0
-    ops.gated_mm.launches = 0
-    model = phase_model()
-    rows = phase_agreement()
-    launches = {"skip_mm": ops.skip_mm.launches,
-                "gated_mm": ops.gated_mm.launches}
+    # ---- the main path: each phase's counters from 0, read right after
+    counters = {"skip_mm": ops.skip_mm, "gated_mm": ops.gated_mm,
+                "nm_spmm": nm_ops.nm_spmm}
+    per_phase: dict = {}
+
+    def main_path(name, fn):
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        per_phase[name] = {k: w.launches for k, w in counters.items()}
+        per_phase[name]["seconds"] = time.perf_counter() - t0
+        return out
+
+    model = main_path("model", phase_model)
+    fleet = main_path("fleet", phase_fleet)
+    rows = main_path("agreement", phase_agreement)
+    launches = {k: sum(p[k] for p in per_phase.values()) for k in counters}
+    print(f"[main path] launches per phase {json.dumps(per_phase)}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
@@ -443,11 +682,11 @@ def main() -> int:
     profile = phase_profile()
 
     kernels = []
-    for name, what, replaces in KERNELS:
-        head = next(r for r in kernel_rows[name] if r["cell"] == "lm_head")
+    for name, what, replaces, source in KERNELS:
+        head = next(r for r in kernel_rows[name] if r["cell"] == "lm_head"
+                    and not r.get("packed"))
         kernels.append({
-            "name": name, "what": what, "route": "cuda",
-            "source": "src/repro_torch/kernels/block_mm/csrc/block_mm.cu",
+            "name": name, "what": what, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -455,7 +694,9 @@ def main() -> int:
             "library_ms": head["library_ms"], "headline_cell": "lm_head",
             "cells": kernel_rows[name]})
     summary = {"build_s": build["seconds"], "model": model,
-               "profile": profile,
+               "fleet": fleet, "profile": profile,
+               "main_path": per_phase,
+               "agreement": [r.as_dict() for r in rows],
                "disagreements": disagree,
                "total_s": time.perf_counter() - t_start}
     out_dir = _root() / "chiprun_out"

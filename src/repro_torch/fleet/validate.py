@@ -1,9 +1,9 @@
-"""Model-verdict validation against the measured block-sparse kernels.
+"""Advisor-verdict validation against the kernels measured on the card.
 
 The analytical model predicts *which mechanism* pays on which matmul;
-this harness checks the predictions' SIGN against the kernels running on
-the card.  This module holds the block half of the JAX package's
-harness — the two mechanisms the paper's taxonomy separates:
+this harness checks the predictions' SIGN against the kernels K1-K3
+running on the card, on matmul shapes drawn from the fleet's configs.
+Three mechanisms, three kinds of claim:
 
 * **skip** (``kernels.block_mm.skip_mm``, K1): block skipping visits only
   the nonzero W blocks, so the win is wall-clock.  The model (SKIP SAFs
@@ -14,11 +14,19 @@ harness — the two mechanisms the paper's taxonomy separates:
   time.  The model (GATE SAFs) predicts ~1.0x time; the measurement
   confirms the *absence* of a wall-clock win, and skip-vs-gate ordering
   confirms skip strictly beats gate.
+* **N:M** (``kernels.nm_spmm.nm_spmm``, K3): the weights are read
+  compressed and decompressed on chip, so the win is memory traffic.
+  The sign check is on the *weight-bytes ratio* of the actually-packed
+  arrays (values + bit-packed offsets vs dense), which is what the
+  advisor's verdict monetizes, plus the kernel's correctness against
+  the dense product of the pruned weight.  The kernel's wall-clock
+  against the dense product is recorded, not sign-gated.
 
 Kernel times come from CUDA events on the card (:func:`_timeit`); a
 measurement on CPU tensors runs the kernels' plain versions and its
-times say nothing about the card.  The N:M arms, ``validate_fleet`` and
-the config extraction they need come with a later slice of the port.
+times say nothing about the card.  Shapes are padded up to kernel- and
+timing-legal sizes (:func:`kernel_cell`), and measurement cells are
+deduplicated across configs.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from ..core.presets import dense_design, two_level_arch
 from ..core.taxonomy import (ActionSAF, RankFormat, SAFKind, SAFSpec,
                              TensorFormat)
 from ..core.workload import matmul
+from .extract import extract_network
 
 #: a predicted/measured ratio beyond this is a "win"; the neutral band
 #: between 1.0 and the threshold absorbs timing noise
@@ -45,8 +54,10 @@ GATE_NEUTRAL = 1.25
 
 ALL_ARMS = ("skip-time", "gate-time", "skip-vs-gate",
             "nm-traffic", "nm-correct")
-#: the arms this module measures (the N:M arms need a later slice)
+#: the arms measured on the block-sparse kernels K1/K2
 BLOCK_ARMS = ("skip-time", "gate-time", "skip-vs-gate")
+#: arms that are deterministic (no wall-clock) — what unit tests run
+DETERMINISTIC_ARMS = ("nm-traffic", "nm-correct")
 
 
 def edge_mapping(M: int, K: int, N: int, *, ns: int = 16, bm: int = 16,
@@ -235,6 +246,47 @@ def _measure_block_cell(Mk: int, Kk: int, Nk: int, *, density: float,
             "nnzb": int(mask.sum()), "blocks": int(mask.size)}
 
 
+def _measure_nm_cell(Mk: int, Kk: int, Nk: int, *, n: int, m: int,
+                     reps: int, bs: int = 64, seed: int = 0,
+                     device=None) -> dict:
+    """Pack an N:M-pruned weight and measure what the advisor monetizes:
+    the weight-bytes ratio of the real packed arrays, plus the kernel's
+    error against the dense product of the pruned W (relative to its
+    largest magnitude) and, informational, the kernel's and the dense
+    product's times.  On the card unless ``device="cpu"``, where the
+    plain version runs; inputs are drawn from ``seed`` exactly as the
+    JAX package draws them.
+
+    ``bs`` block sizes are passed through to the kernel: cells are
+    padded to ``bs`` multiples, which need not divide the kernel's
+    default 128-wide blocks (``bs`` must be a multiple of ``m``)."""
+    from ..core.device import resolve_device
+    from ..kernels.nm_spmm import nm_spmm
+    from ..sparsity.nm import nm_prune_dense, pack_nm, pack_offsets
+    if bs % m:
+        raise ValueError(f"bs={bs} is not a multiple of m={m}")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(
+        rng.standard_normal((Mk, Kk)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(
+        rng.standard_normal((Kk, Nk)).astype(np.float32)).to(dev)
+    w_nm = nm_prune_dense(w, n, m)
+    vals, idx = pack_nm(w_nm, n, m)
+    packed = pack_offsets(idx, m)
+    sparse_bytes = vals.nbytes + packed.nbytes
+    dense_bytes = w.nbytes
+    t_dense = _timeit(lambda: a @ w, reps)
+    t_nm = _timeit(lambda: nm_spmm(a, vals, idx, n=n, m=m, bk=bs, bn=bs),
+                   reps)
+    got = nm_spmm(a, vals, idx, n=n, m=m, bk=bs, bn=bs)
+    want = a @ w_nm
+    err = float((got - want).abs().max()) / max(
+        1e-9, float(want.abs().max()))
+    return {"bytes_ratio": sparse_bytes / dense_bytes,
+            "t_dense": t_dense, "t_nm": t_nm, "err": err}
+
+
 # ----------------------------------------------------------------------
 # the model side
 # ----------------------------------------------------------------------
@@ -283,6 +335,98 @@ def block_rows(config: str, layer: str, cell: tuple[int, int, int],
         rows.append(AgreementRow(
             config, layer, "skip-vs-gate", M, K, N, p, ms, pw, mw,
             pw == mw, "SKIP saves time over GATE (taxonomy ordering)"))
+    return rows
+
+
+def validate_fleet(config_names=None, *, reduced: bool = True,
+                   arms: Sequence[str] = ALL_ARMS,
+                   density: float = 0.25, nm: tuple[int, int] = (2, 4),
+                   bs: int = 64, min_dim: int = 512, reps: int = 5,
+                   max_cells_per_config: int = 2,
+                   seq_len: int = 256, batch: int = 8,
+                   device=None) -> list[AgreementRow]:
+    """Run the agreement harness: advisor/model verdict signs vs the
+    kernels measured on ``device`` (the CUDA card unless
+    ``device="cpu"``), on the decode shapes of each config's top weight
+    matmuls by FLOPs.
+
+    Returns one row per (config, arm, cell); a row with
+    ``agree=False`` is a modeling claim contradicted by a measurement.
+    Measurement cells are deduped globally across configs, so cost
+    scales with unique padded shapes, not configs."""
+    from ..configs import ARCH_NAMES, get_config
+    from ..core.advisor import advise
+    from ..core.device import resolve_device
+    device = resolve_device(device)
+    if config_names is None:
+        config_names = ARCH_NAMES
+    arms = tuple(arms)
+
+    # ---- collect cells: top weight matmuls per config, padded ----
+    per_config: list[tuple[str, str, tuple[int, int, int]]] = []
+    for name in config_names:
+        cfg = get_config(name, reduced=reduced)
+        net = extract_network(cfg, "decode", seq_len=seq_len,
+                              batch=batch)
+        weights = sorted(net.weight_matmuls(),
+                         key=lambda e: e.flops, reverse=True)
+        for e in weights[:max_cells_per_config]:
+            cell = kernel_cell(e.M, e.K, e.N, bs=bs, min_dim=min_dim)
+            per_config.append((cfg.name, e.name, cell))
+
+    cells = sorted({c for _, _, c in per_config})
+    block_meas: dict = {}
+    nm_meas: dict = {}
+    needs_block = any(a in arms for a in BLOCK_ARMS)
+    if needs_block:
+        for c in cells:
+            block_meas[c] = _measure_block_cell(
+                *c, density=density, bs=bs, reps=reps, device=device)
+    if "nm-traffic" in arms or "nm-correct" in arms:
+        for c in cells:
+            nm_meas[c] = _measure_nm_cell(*c, n=nm[0], m=nm[1],
+                                          reps=reps, bs=bs, device=device)
+    pred = (_predict_block(cells, density=density, device=device)
+            if needs_block else {})
+    cell_ix = {c: i for i, c in enumerate(cells)}
+
+    # ---- advisor N:M verdicts per config (decode-like shard) ----
+    nm_pred: dict = {}
+    if "nm-traffic" in arms:
+        for name in config_names:
+            cfg = get_config(name, reduced=reduced)
+            adv = advise(cfg, tokens_per_device=batch, tp=1,
+                         nm_options=(nm,), device=device)
+            nm_pred[cfg.name] = {a.layer: a for a in adv}
+
+    rows: list[AgreementRow] = []
+    for cfg_name, layer, cell in per_config:
+        i = cell_ix[cell]
+        M, K, N = cell
+        if needs_block:
+            rows += block_rows(cfg_name, layer, cell, block_meas[cell],
+                               pred["dense"][i], pred["skip"][i],
+                               pred["gate"][i], arms=arms)
+        if "nm-traffic" in arms and cell in nm_meas:
+            nmm = nm_meas[cell]
+            adv = nm_pred.get(cfg_name, {}).get(layer)
+            p = adv.speedup if adv else 1.0
+            ms = 1.0 / nmm["bytes_ratio"]
+            # the advisor only claims a win when compressed traffic is
+            # lower; measured packed bytes must agree in sign
+            pw, mw = p > 1.0 + 1e-6, ms > 1.0 + 1e-6
+            rows.append(AgreementRow(
+                cfg_name, layer, "nm-traffic", M, K, N, p, ms, pw, mw,
+                (not pw) or mw,
+                f"bytes_ratio={nmm['bytes_ratio']:.4f} "
+                f"t_nm/t_dense={nmm['t_nm'] / nmm['t_dense']:.2f} "
+                "(wall-clock informational)"))
+        if "nm-correct" in arms and cell in nm_meas:
+            err = nm_meas[cell]["err"]
+            ok = err < 1e-3
+            rows.append(AgreementRow(
+                cfg_name, layer, "nm-correct", M, K, N, 0.0, err, ok,
+                ok, ok, "kernel output vs dense product of pruned W"))
     return rows
 
 

@@ -1,8 +1,9 @@
 """Carry descriptions across from the JAX package to the port.
 
 The system has no weights: what crosses between the two packages is the
-description of a design point (architecture, SAFs, workload, mapping)
-and its packed parameter rows.  :func:`from_reference` turns the JAX
+description of a design point (architecture, SAFs, workload, mapping),
+of a model configuration and the matmuls extracted from it, and packed
+parameter rows.  :func:`from_reference` turns the JAX
 package's description objects into the port's equivalents by dataclass
 field and enum member *name*, without importing the JAX package, so one
 description can be fed through both (the tests do).  Packed rows cross
@@ -20,12 +21,16 @@ from .core.mapping import Loop, LoopNest
 from .core.taxonomy import (ActionSAF, RankFormat, SAFKind, SAFSpec,
                             TensorFormat)
 from .core.workload import TensorSpec, Workload
+from .fleet.extract import LayerMatmul, MeshSpec, NetworkWorkloads
+from .models.config import HybridConfig, MLAConfig, MoEConfig, ModelConfig
 
 #: the port's description classes, by the name they share with the JAX
 #: package's
 _CLASSES = {c.__name__: c for c in (
     Architecture, ArchParams, ComputeLevel, StorageLevel, Design, Loop,
-    LoopNest, ActionSAF, SAFSpec, TensorFormat, TensorSpec, Workload)}
+    LoopNest, ActionSAF, SAFSpec, TensorFormat, TensorSpec, Workload,
+    ModelConfig, MoEConfig, MLAConfig, HybridConfig, LayerMatmul,
+    NetworkWorkloads, MeshSpec)}
 _ENUMS = {e.__name__: e for e in (RankFormat, SAFKind)}
 
 
@@ -33,7 +38,8 @@ def from_reference(obj):
     """The port's equivalent of a JAX-package description object.
 
     Dataclasses (``Design``, ``Architecture``, ``SAFSpec``, ``Workload``,
-    ``LoopNest`` and the ones inside them) are rebuilt field by field,
+    ``LoopNest``, ``ModelConfig``, ``LayerMatmul``, ``NetworkWorkloads``,
+    ``MeshSpec`` and the ones inside them) are rebuilt field by field,
     enums (``RankFormat``, ``SAFKind``) by member name; tuples, lists and
     dicts are converted element-wise, and anything else (numbers,
     strings, numpy arrays in density specs) is passed through.  Objects

@@ -9,9 +9,9 @@ in ``<wrapper>.launches``.
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` from the
 source in this package, into ``build/repro_torch/`` at the root of the
-checkout, and bound through a plain C interface with ``ctypes``.  They
-launch on PyTorch's current stream and allocate nothing: the wrapper
-allocates the output with ``torch.empty``.
+checkout, and bound through a plain C interface with ``ctypes``
+(``kernels.nvcc``).  They launch on PyTorch's current stream and
+allocate nothing: the wrapper allocates the output with ``torch.empty``.
 
 Both wrappers take A (M, K) and W (K, N) as f32 or bf16 (the same type,
 contiguous, on one device) and return (M, N) f32.  Block sizes follow
@@ -24,80 +24,22 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..nvcc import BUILD_DIR, CudaLibrary
 from .ref import block_mm_ref
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "block_mm.cu"
-#: build output, at the root of the checkout (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: ``csrc/block_mm.cu``, built at first use (``kernels.nvcc``)
+LIBRARY = CudaLibrary(
+    Path(__file__).resolve().parent / "csrc" / "block_mm.cu",
+    {"block_mm_skip": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+     "block_mm_gated": [_P, _P, _P, _P] + [_I] * 7 + [_P]})
 _KERNEL_BM = (8, 16, 32, 64, 128)
 _KERNEL_BN = (32, 64, 128)
-
-_LIB = None
-_LOCK = threading.Lock()
-#: the compiler's report (registers, shared memory, spills) of the build
-build_log = ""
-
-
-def _nvcc() -> str:
-    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if home and (Path(home) / "bin" / "nvcc").exists():
-            return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    raise RuntimeError("nvcc not found: the block_mm kernels are built "
-                       "from csrc/block_mm.cu with the CUDA toolkit "
-                       "(set CUDA_HOME)")
-
-
-def build() -> Path:
-    """Compile ``csrc/block_mm.cu`` into a shared library (once per
-    source content and flag set) and return its path."""
-    global build_log
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:12]
-    out = BUILD_DIR / f"libblock_mm-{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(_SRC)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, out)
-    return out
-
-
-def _lib():
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.block_mm_skip.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
-                                          I, P]
-            lib.block_mm_skip.restype = I
-            lib.block_mm_gated.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
-                                           P]
-            lib.block_mm_gated.restype = I
-            _LIB = lib
-        return _LIB
 
 
 # ----------------------------------------------------------------------
@@ -265,7 +207,7 @@ def skip_mm(a, w_masked, kidx, jidx=None, *, bm=128, bk=128, bn=128):
                          f"not fit ({K // bk}, {N // bn}) on {a.device}")
     idx = blocks.index
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    err = _lib().block_mm_skip(
+    err = LIBRARY.lib().block_mm_skip(
         a.data_ptr(), w_masked.data_ptr(), idx.data_ptr(),
         idx.data_ptr() + 4 * len(blocks.kidx), out.data_ptr(), M, K, N, bm,
         bk, bn, int(a.dtype == torch.bfloat16), _stream(a.device))
@@ -316,7 +258,7 @@ def gated_mm(a, w, block_mask, *, bm=128, bk=128, bn=128):
                          f"{mask.device} != ({K // bk}, {N // bn}) on "
                          f"{a.device}")
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    err = _lib().block_mm_gated(
+    err = LIBRARY.lib().block_mm_gated(
         a.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(), M, K,
         N, bm, bk, bn, int(a.dtype == torch.bfloat16), _stream(a.device))
     if err:
@@ -328,6 +270,6 @@ def gated_mm(a, w, block_mask, *, bm=128, bk=128, bn=128):
 
 gated_mm.launches = 0
 
-__all__ = ["BlockList", "block_indices", "block_list", "block_mm_ref",
-           "build", "column_pointers", "gated_mm", "gated_mm_plain",
-           "skip_mm", "skip_mm_plain"]
+__all__ = ["BUILD_DIR", "BlockList", "LIBRARY", "block_indices",
+           "block_list", "block_mm_ref", "column_pointers",
+           "gated_mm", "gated_mm_plain", "skip_mm", "skip_mm_plain"]
