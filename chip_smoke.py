@@ -9,16 +9,22 @@ one) and the CUDA toolkit's ``nvcc``; it imports nothing of JAX or of the
 JAX package.  Phases, in order — any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the block-sparse kernels K1 (SKIP) and K2 (GATE) and
-   the N:M kernel K3 from ``src/repro_torch/kernels/*/csrc`` with nvcc
-   for sm_90a, one nvcc per source, started together;
+2. build: compile the block-sparse kernels K1 (SKIP) and K2 (GATE), the
+   N:M kernel K3 and the flash-attention kernel K4 from
+   ``src/repro_torch/kernels/*/csrc`` with nvcc for sm_90a, one nvcc per
+   source, started together;
 3. kernels: K1 and K2 against their plain PyTorch versions on the
    qwen2-0.5b full-width decode cells (batch 8: ffn_gate_up 8x896x9728
    and lm_head 8x896x151936, 64-wide blocks, density 0.25, seed 0) and
    one bf16 cell at the ffn_down shape (128x4864x896); K3 against its
    plain version at 2:4 on the same two f32 cells and the bf16 cell,
    with int8 and with bit-packed offsets; each with kernel, plain,
-   library (torch.matmul) and bound times;
+   library (torch.matmul) and bound times; K4 against its plain version
+   on the serve prefill cell (B 8, S 512, 14 heads, 2 KV heads, D 64),
+   a long prefill (1, 4096, 14, 2, 64), qwen3-4b's heads (1, 2048, 32,
+   8, 128), all bf16 and causal, one f32 cell and one non-causal cell,
+   with kernel, plain, library (``scaled_dot_product_attention`` on the
+   repeated KV heads) and bound times;
 4. model: the whole mapspace of each of the four ResNet50 layers
    (833,400 candidates) searched on the card through ``mapper.search``;
    each winner re-validated by the scalar oracle, 512 sampled
@@ -34,10 +40,20 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    model's skip-time, gate-time and skip-vs-gate predictions against
    K1/K2, the advisor's N:M traffic verdict against the packed bytes,
    and K3's error against the dense product of the pruned weight;
-7. profile: where one warm engine evaluation of a ResNet50 layer's
+7. serve: the LM serving path, ``ServeLoop`` over qwen2-0.5b at full
+   width in bf16 (weights from a seeded generator on the card): batch 8,
+   prompt 512, 32 generated tokens, 16 requests (a first wave and 8
+   refill prefills), greedy; K4 must launch once per layer and prefill;
+   prefill and decode-step times, tokens/s and request latency, then
+   the device's idle share over 8 traced decode steps of a second,
+   one-wave loop;
+8. serve check: the card's prefill logits and KV cache against the
+   port's CPU path on the same weights (full width, 2 layers, f32,
+   prompt 128, so K4 runs in f32 on the card);
+9. profile: where one warm engine evaluation of a ResNet50 layer's
    mapspace goes on the card.
 
-Phases 4-6 are the main path: before each, every kernel's launch
+Phases 4-7 are the main path: before each, every kernel's launch
 counter is set to 0, and it is read right after.  The last lines are
 the ``kernels`` JSON object, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -81,7 +97,24 @@ NM = (2, 4)
 FLEET_SAMPLES = 64
 #: unique fleet shapes in the traced evaluation pass
 PROFILE_SHAPES = 24
+#: K4 cells: (name, B, S, H, KV, D, dtype, causal)
+FLASH_CELLS = (
+    ("serve_prefill", 8, 512, 14, 2, 64, torch.bfloat16, True),
+    ("long_prefill", 1, 4096, 14, 2, 64, torch.bfloat16, True),
+    ("qwen3_4b_heads", 1, 2048, 32, 8, 128, torch.bfloat16, True),
+    ("serve_prefill_f32", 2, 512, 14, 2, 64, torch.float32, True),
+    ("serve_prefill_noncausal", 8, 512, 14, 2, 64, torch.bfloat16, False),
+)
+#: the serve phase: qwen2-0.5b at full width
+SERVE = dict(arch="qwen2-0.5b", batch=8, prompt_len=512, gen=32,
+             requests=16)
+#: decode steps traced for the device's idle share
+SERVE_TRACE_STEPS = 8
 F32_TOL = 1e-5          # max|kernel - plain| / max|plain|
+FLASH_BF16_TOL = 3e-2   # atol = rtol of the JAX package's bf16 flash test
+#: card vs CPU prefill logits, relative to the largest |logit|: f32 sums
+#: taken in another order over 2 layers (the CPU tests' bound)
+SERVE_LOGITS_TOL = 1e-4
 BF16_TOL = 0.3          # atol = rtol of the JAX package's bf16 block test
 NM_BF16_TOL = 0.25      # atol = rtol of the JAX package's bf16 N:M test
 ORACLE_REL = 1e-6       # batched engine vs the scalar oracle
@@ -144,8 +177,9 @@ def bound_ms(byte_count: float, ops: float, dtype) -> tuple[float, str]:
 # ----------------------------------------------------------------------
 def _libraries():
     from repro_torch.kernels.block_mm.ops import LIBRARY as block_mm
+    from repro_torch.kernels.flash_attention.ops import LIBRARY as flash
     from repro_torch.kernels.nm_spmm.ops import LIBRARY as nm_spmm
-    return (block_mm, nm_spmm)
+    return (block_mm, nm_spmm, flash)
 
 
 def phase_build() -> dict:
@@ -336,6 +370,65 @@ def phase_nm_kernels(device="cuda", cells=None, timed=True) -> list:
                 del sets
             rows.append(row)
             print(f"[kernels] nm_spmm {layer} {row}")
+    return rows
+
+
+def phase_flash_kernels(device="cuda", cells=FLASH_CELLS, timed=True
+                        ) -> list:
+    """K4 against its plain version; one row per cell."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    rows = []
+    for name, B, S, H, KV, D, dtype, causal in cells:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=device
+                               ).to(dtype) for h in (H, KV, KV))
+
+        def kern(q_, k_, v_):
+            return flash_attention(q_, k_, v_, causal=causal)
+
+        def plain(q_, k_, v_):
+            return flash_attention_plain(q_, k_, v_, causal=causal)
+
+        got, want = kern(q, k, v), plain(q, k, v)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        err, rel, ok = _compare(got, want, dtype, FLASH_BF16_TOL)
+        row = {"cell": name, "shape": [B, S, H, KV, D],
+               "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+               "max_abs_err": err, "rel_err": rel}
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version on {name}: {row}")
+        if timed:
+            elt = q.element_size()
+            # q, k and v read once (KV heads not repeated), f32 out once
+            byte_count = (q.numel() + k.numel() + v.numel()) * elt \
+                + q.numel() * 4
+            ops = 4.0 * B * H * D * (S * (S + 1) / 2 if causal else S * S)
+            b_ms, b_by = bound_ms(byte_count, ops, dtype)
+            per_set = (q.numel() + k.numel() + v.numel()) * elt
+            n_sets = max(1, math.ceil(2 * L2_BYTES / per_set))
+            sets = [(q.clone(), k.clone(), v.clone())
+                    for _ in range(n_sets)]
+            row.update(ms=time_ms(kern, sets, graph=True),
+                       plain_ms=time_ms(plain, sets, graph=False))
+            # the yardstick: PyTorch's fused attention on (B, H, S, D)
+            # with the KV heads repeated beforehand
+            rep = H // KV
+            sets = [(s[0].transpose(1, 2),
+                     s[1].repeat_interleave(rep, 2).transpose(1, 2),
+                     s[2].repeat_interleave(rep, 2).transpose(1, 2))
+                    for s in sets]
+            row.update(library_ms=time_ms(
+                lambda q_, k_, v_: F.scaled_dot_product_attention(
+                    q_, k_, v_, is_causal=causal), sets, graph=True),
+                bound_ms=b_ms, bound_by=b_by, bytes=byte_count, ops=ops,
+                input_sets=n_sets)
+            del sets
+        rows.append(row)
+        print(f"[kernels] flash_attention {name} {row}")
     return rows
 
 
@@ -601,6 +694,129 @@ def phase_fleet(device="cuda", configs=None, reduced=False,
     return out
 
 
+def _serve_model(device, arch, layers=None, dtype=None, reduced=False):
+    """The port's model of ``arch`` at full width (``layers`` cuts the
+    depth, ``dtype`` overrides the configuration's), weights drawn from
+    a generator seeded ``SEED`` on ``device``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api
+    cfg = get_config(arch, reduced=reduced)
+    if layers is not None or dtype is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                                  dtype=dtype or cfg.dtype)
+    api = get_api(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return cfg, api, api.init(cfg, gen, device)
+
+
+def phase_serve(device="cuda", arch=SERVE["arch"], reduced=False,
+                batch=SERVE["batch"], prompt_len=SERVE["prompt_len"],
+                gen=SERVE["gen"], requests=SERVE["requests"],
+                trace_steps=SERVE_TRACE_STEPS) -> dict:
+    """``ServeLoop`` over ``arch``: every request served in full, K4
+    launched once per layer and prefill on the card; prefill and
+    decode-step times, tokens/s and latency from an untraced run, then
+    the device's idle share over ``trace_steps`` decode steps of a
+    second loop (one wave) on the same weights."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.serve import ServeLoop
+    cfg, api, model = _serve_model(device, arch, reduced=reduced)
+    prompts = np.random.default_rng(SEED).integers(
+        1, cfg.vocab_size, size=(requests, prompt_len)).astype(np.int32)
+
+    def new_loop(n, gen_):
+        loop = ServeLoop(api, cfg, model, batch=batch,
+                         prompt_len=prompt_len, gen=gen_,
+                         device=None if device == "cuda" else device)
+        for r in range(n):
+            loop.submit(r, prompts[r])
+        t0 = time.perf_counter()
+        loop.start()                    # synchronises inside its span
+        return loop, (time.perf_counter() - t0) * 1e3
+
+    loop, prefill_ms = new_loop(requests, gen)
+    step_ms, more = [], True
+    while more:
+        t0 = time.perf_counter()
+        more = loop.step()              # ends by reading the tokens back
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    res = loop.result()
+    if (loop.served != requests
+            or any(len(v) != gen for v in res["outputs"].values())):
+        raise AssertionError(f"serve: {loop.served} of {requests} requests "
+                             f"served in full")
+    tokens = np.concatenate([np.asarray(v) for v in res["outputs"].values()])
+    if not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError("serve: token ids outside the vocabulary")
+    # the traced stretch: one wave, its decode steps after the first
+    traced, warm_prefill_ms = new_loop(batch, trace_steps + 1)
+    traced.step()
+    busy = _device_busy(lambda: [traced.step()
+                                 for _ in range(trace_steps)], device)
+    busy["steps"] = trace_steps
+    prefills = loop.prefills + traced.prefills
+    want = cfg.num_layers * prefills
+    if device != "cpu" and flash_attention.launches != want:
+        raise AssertionError(f"serve: K4 launched {flash_attention.launches}"
+                             f" times, expected {cfg.num_layers} layers x "
+                             f"{prefills} prefills = {want}")
+    lat = res["latency_s"]
+    out = {"arch": cfg.name, "device": torch.cuda.get_device_name(0)
+           if device != "cpu" else "cpu", "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "batch": batch,
+           "prompt_len": prompt_len, "gen": gen, "requests": requests,
+           "prefills": loop.prefills, "decode_steps": loop.decode_steps,
+           "k4_launches": flash_attention.launches,
+           "k4_launches_expected": want,
+           "prefill_ms": prefill_ms, "prefill_ms_warm": warm_prefill_ms,
+           "decode_step_ms_median": float(np.median(step_ms)),
+           "decode_step_ms_max": max(step_ms),
+           "tokens_per_s": res["tokens_per_s"],
+           "latency_p50_s": lat["p50_s"], "latency_p99_s": lat["p99_s"],
+           "latency_max_s": lat["max_s"], "traced_decode": busy}
+    print(f"[serve] {json.dumps(out)}")
+    return out
+
+
+def phase_serve_logits(device="cuda", arch=SERVE["arch"], layers=2,
+                       batch=2, prompt_len=128, tol=SERVE_LOGITS_TOL,
+                       reduced=False) -> dict:
+    """The card's prefill (K4 in f32) against the port's CPU path on the
+    same weights: logits of the last position and the KV cache, relative
+    to their largest magnitudes."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    cfg, api, model = _serve_model(device, arch, layers=layers,
+                                   dtype="float32", reduced=reduced)
+    toks = np.random.default_rng(SEED + 1).integers(
+        1, cfg.vocab_size, size=(batch, prompt_len)).astype(np.int32)
+    before = flash_attention.launches
+    logits, cache = api.prefill(model, torch.as_tensor(toks, device=device),
+                                cfg, prompt_len + 1)
+    launched = flash_attention.launches - before
+    logits, cache = logits.cpu(), [c.cpu() for c in cache]
+    if device != "cpu" and launched != cfg.num_layers:
+        raise AssertionError(f"serve check: K4 launched {launched} times "
+                             f"for {cfg.num_layers} layers")
+    want, want_cache = api.prefill(model.to("cpu"), torch.as_tensor(toks),
+                                   cfg, prompt_len + 1)
+    if tuple(logits.shape) != (batch, 1, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"serve check: logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    err = float((logits - want).abs().max() / want.abs().max())
+    cache_err = max(float((c - w).abs().max() / w.abs().max())
+                    for c, w in zip(cache, want_cache))
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "batch": batch, "prompt_len": prompt_len, "k4_launches": launched,
+           "logits_rel_err": err, "cache_rel_err": cache_err, "tol": tol}
+    print(f"[serve check] {json.dumps(out)}")
+    if err > tol or cache_err > tol:
+        raise AssertionError(f"serve check: the card's prefill differs from "
+                             f"the CPU path's: {out}")
+    return out
+
+
 def phase_agreement(device="cuda", configs=("qwen2-0.5b",),
                     reduced=False, reps=5, cells=QWEN2_CELLS) -> list:
     """``validate_fleet`` with all five arms on ``device``."""
@@ -624,17 +840,23 @@ def phase_agreement(device="cuda", configs=("qwen2-0.5b",),
     return rows
 
 
+#: (name, what, replaces, source, headline cell)
 KERNELS = (
     ("skip_mm", "K1 SKIP block-sparse matmul",
      "src/repro/kernels/block_mm/kernel.py:95",
-     "src/repro_torch/kernels/block_mm/csrc/block_mm.cu"),
+     "src/repro_torch/kernels/block_mm/csrc/block_mm.cu", "lm_head"),
     ("gated_mm", "K2 GATE block-sparse matmul",
      "src/repro/kernels/block_mm/kernel.py:49",
-     "src/repro_torch/kernels/block_mm/csrc/block_mm.cu"),
+     "src/repro_torch/kernels/block_mm/csrc/block_mm.cu", "lm_head"),
     ("nm_spmm", "K3 N:M structured-sparse matmul (2:4, int8 offsets; "
      "packed offsets in cells)",
      "src/repro/kernels/nm_spmm/kernel.py:66",
-     "src/repro_torch/kernels/nm_spmm/csrc/nm_spmm.cu"),
+     "src/repro_torch/kernels/nm_spmm/csrc/nm_spmm.cu", "lm_head"),
+    ("flash_attention", "K4 flash attention (causal SKIP at the diagonal; "
+     "GQA by head sharing)",
+     "src/repro/kernels/flash_attention/kernel.py:76",
+     "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+     "serve_prefill"),
 )
 
 
@@ -644,6 +866,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(_root() / "src"))
     from repro_torch.kernels.block_mm import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.nm_spmm import ops as nm_ops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -655,10 +878,12 @@ def main() -> int:
     build = phase_build()
     kernel_rows = phase_kernels()
     kernel_rows["nm_spmm"] = phase_nm_kernels()
+    kernel_rows["flash_attention"] = phase_flash_kernels()
 
     # ---- the main path: each phase's counters from 0, read right after
     counters = {"skip_mm": ops.skip_mm, "gated_mm": ops.gated_mm,
-                "nm_spmm": nm_ops.nm_spmm}
+                "nm_spmm": nm_ops.nm_spmm,
+                "flash_attention": fa_ops.flash_attention}
     per_phase: dict = {}
 
     def main_path(name, fn):
@@ -673,17 +898,19 @@ def main() -> int:
     model = main_path("model", phase_model)
     fleet = main_path("fleet", phase_fleet)
     rows = main_path("agreement", phase_agreement)
+    serve = main_path("serve", phase_serve)
     launches = {k: sum(p[k] for p in per_phase.values()) for k in counters}
     print(f"[main path] launches per phase {json.dumps(per_phase)}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
     disagree = [r.as_dict() for r in rows if not r.agree]
+    serve_check = phase_serve_logits()
     profile = phase_profile()
 
     kernels = []
-    for name, what, replaces, source in KERNELS:
-        head = next(r for r in kernel_rows[name] if r["cell"] == "lm_head"
+    for name, what, replaces, source, cell in KERNELS:
+        head = next(r for r in kernel_rows[name] if r["cell"] == cell
                     and not r.get("packed"))
         kernels.append({
             "name": name, "what": what, "route": "cuda", "source": source,
@@ -691,10 +918,11 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in kernel_rows[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "headline_cell": "lm_head",
+            "library_ms": head["library_ms"], "headline_cell": cell,
             "cells": kernel_rows[name]})
     summary = {"build_s": build["seconds"], "model": model,
-               "fleet": fleet, "profile": profile,
+               "fleet": fleet, "serve": serve,
+               "serve_check": serve_check, "profile": profile,
                "main_path": per_phase,
                "agreement": [r.as_dict() for r in rows],
                "disagreements": disagree,

@@ -1,21 +1,29 @@
-"""Carry descriptions across from the JAX package to the port.
+"""Carry descriptions and weights across from the JAX package to the
+port.
 
-The system has no weights: what crosses between the two packages is the
-description of a design point (architecture, SAFs, workload, mapping),
-of a model configuration and the matmuls extracted from it, and packed
-parameter rows.  :func:`from_reference` turns the JAX
-package's description objects into the port's equivalents by dataclass
-field and enum member *name*, without importing the JAX package, so one
+What crosses between the two packages is the description of a design
+point (architecture, SAFs, workload, mapping), of a model configuration
+and the matmuls extracted from it, packed parameter rows, and the weights
+of a language model.  :func:`from_reference` turns the JAX package's
+description objects into the port's equivalents by dataclass field and
+enum member *name*, without importing the JAX package, so one
 description can be fed through both (the tests do).  Packed rows cross
 as numpy: ``core.arch.ArchParams.from_numpy`` and
 ``core.batched.WorkloadParams`` turn them into tensors on a device.
+:func:`params_from_reference` fills the port's ``DecoderLM`` from the
+reference's ``init_lm`` parameters given as nested dicts of numpy
+arrays.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 
+import numpy as np
+import torch
+
 from .core.arch import Architecture, ArchParams, ComputeLevel, StorageLevel
+from .core.device import resolve_device
 from .core.engine import Design
 from .core.mapping import Loop, LoopNest
 from .core.taxonomy import (ActionSAF, RankFormat, SAFKind, SAFSpec,
@@ -23,6 +31,7 @@ from .core.taxonomy import (ActionSAF, RankFormat, SAFKind, SAFSpec,
 from .core.workload import TensorSpec, Workload
 from .fleet.extract import LayerMatmul, MeshSpec, NetworkWorkloads
 from .models.config import HybridConfig, MLAConfig, MoEConfig, ModelConfig
+from .models.transformer import init_lm
 
 #: the port's description classes, by the name they share with the JAX
 #: package's
@@ -65,3 +74,61 @@ def from_reference(obj):
     if isinstance(obj, (tuple, list)):
         return type(obj)(from_reference(v) for v in obj)
     return obj
+
+
+def _flatten(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def _tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":    # ml_dtypes: exact through f32
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def params_from_reference(params, cfg, *, device):
+    """The port's ``DecoderLM`` holding the JAX package's ``init_lm``
+    weights.
+
+    ``params`` is the reference's parameter tree as nested dicts of
+    numpy arrays (``jax.tree.map(np.asarray, params)``), the blocks
+    stacked over layers; ``cfg`` the port's (or the reference's)
+    ``ModelConfig``.  Its path ``("blocks", "attn", "wq")[l]`` fills the
+    port's ``blocks.{l}.attn.wq``.  A missing key, an extra key or a
+    shape that differs from the port's raises ``ValueError``; values are
+    kept exactly, in the port's ``cfg.dtype``.  ``device`` follows the
+    device rule (None: the CUDA card)."""
+    cfg = from_reference(cfg)
+    device = resolve_device(device)
+    flat = {}
+    for key, arr in _flatten(params):
+        if key.startswith("blocks."):
+            arr = np.asarray(arr)
+            if arr.ndim == 0 or arr.shape[0] != cfg.num_layers:
+                raise ValueError(f"{key}: {arr.shape} is not stacked over "
+                                 f"{cfg.num_layers} layers")
+            for layer in range(cfg.num_layers):
+                flat[f"blocks.{layer}.{key[len('blocks.'):]}"] = arr[layer]
+        else:
+            flat[key] = arr
+    model = init_lm(cfg, None, "meta")
+    want = model.state_dict()
+    missing = sorted(want.keys() - flat.keys())
+    extra = sorted(flat.keys() - want.keys())
+    if missing or extra:
+        raise ValueError(f"reference parameters do not match the port's "
+                         f"{cfg.name}: missing {missing}, extra {extra}")
+    state = {}
+    for key, ref in want.items():
+        got = _tensor(flat[key])
+        if tuple(got.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: reference shape {tuple(got.shape)}, "
+                             f"the port's {tuple(ref.shape)}")
+        state[key] = got.to(device=device, dtype=ref.dtype)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model

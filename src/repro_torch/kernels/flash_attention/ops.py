@@ -1,0 +1,154 @@
+"""Wrapper of the flash-attention kernel K4.
+
+``flash_attention`` launches the CUDA kernel of ``csrc/flash_attention.cu``
+for tensors on a CUDA device and uses the plain PyTorch version beside it
+(``flash_attention_plain``) only for tensors on the CPU.  For a CUDA
+tensor it launches the kernel or raises; it never falls back.  It counts
+its launches in ``flash_attention.launches``.  The kernel is built at
+first use with ``nvcc`` for ``sm_90a`` (``kernels.nvcc``), launches on
+PyTorch's current stream and allocates nothing: the wrapper allocates the
+output.
+
+As the JAX package's ``flash_attention``: q (B, S, H, D), k and v
+(B, S, KV, D) with H a multiple of KV (GQA: query head h reads KV head
+``h // (H // KV)``, the reference's ``jnp.repeat`` along the head axis);
+returns (B, S, H, D) f32.  ``bq = min(bq, S)`` and ``bk = min(bk, S)``,
+and ``S % bq`` or ``S % bk`` not 0 raises ``ValueError`` where the
+reference asserts.  Under causal masking the kernel's key loop stops at
+the diagonal: future key tiles are SKIPPED, where the TPU kernel GATED
+them with ``pl.when``; the numerics are the same.  The kernel takes
+f32 or bf16 and D in {16, 32, 64, 128}, reads q, k and v through their
+strides (last dimension contiguous) and never repeats K/V heads in
+memory; its key tile is its own, so ``bq``/``bk`` only decide which
+shapes are legal.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from ..nvcc import CudaLibrary
+from .ref import flash_attention_ref
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+#: ``csrc/flash_attention.cu``, built at first use (``kernels.nvcc``)
+LIBRARY = CudaLibrary(
+    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+    {"flash_attention": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I, _I, _P]})
+#: the head dims the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128)
+NEG_INF = -1e30
+
+
+def _shapes(q, k, v, bq, bk):
+    """(B, S, H, KV, D, bq, bk) after the reference's clamping; raises
+    where the reference asserts."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"need q (B, S, H, D) and k, v (B, S, KV, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    if tuple(k.shape) != (B, S, KV, D) or tuple(v.shape) != (B, S, KV, D):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"be ({B}, {S}, KV, {D})")
+    if H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} KV "
+                         f"heads")
+    bq, bk = min(bq, S), min(bk, S)
+    if S % bq or S % bk:
+        raise ValueError(f"tiles (bq, bk) = ({bq}, {bk}) do not divide "
+                         f"S = {S}")
+    return B, S, H, KV, D, bq, bk
+
+
+def flash_attention_plain(q, k, v, *, bq=128, bk=128, causal=True):
+    """Plain PyTorch K4: the recurrence of the reference's
+    ``_flash_kernel``, one key tile at a time (all query tiles at once),
+    with its roundings: scores in f32, ``p`` cast to v's type before the
+    PV product, division by ``max(l, 1e-30)``; a key tile wholly in the
+    future of a query tile leaves its statistics unchanged, as the
+    reference's ``pl.when`` gate does.  Same arguments and result as
+    :func:`flash_attention`."""
+    B, S, H, KV, D, bq, bk = _shapes(q, k, v, bq, bk)
+    rep = H // KV
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    nq, dev = S // bq, q.device
+    qf = q.transpose(1, 2).reshape(B * H, nq, bq, D).float()
+    kf = k.transpose(1, 2).reshape(B * H, S, D)
+    vf = v.transpose(1, 2).reshape(B * H, S, D)
+    scale = 1.0 / math.sqrt(D)
+    m = torch.full((B * H, nq, bq), NEG_INF, device=dev)
+    l = torch.zeros((B * H, nq, bq), device=dev)
+    acc = torch.zeros((B * H, nq, bq, D), device=dev)
+    q_pos = torch.arange(S, device=dev).reshape(nq, bq)
+    for ki in range(S // bk):
+        kt = kf[:, None, ki * bk:(ki + 1) * bk].float()
+        vt = vf[:, None, ki * bk:(ki + 1) * bk]
+        s = (qf @ kt.transpose(-1, -2)) * scale       # (BH, nq, bq, bk)
+        if causal:
+            k_pos = ki * bk + torch.arange(bk, device=dev)
+            s = torch.where(k_pos[None, None, None, :]
+                            <= q_pos[None, :, :, None], s,
+                            torch.full_like(s, NEG_INF))
+            needed = (ki * bk <= q_pos[:, -1])[None, :, None]
+        else:
+            needed = torch.ones((1, nq, 1), dtype=torch.bool, device=dev)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_new = l * corr + p.sum(dim=-1)
+        acc_new = acc * corr[..., None] + p.to(v.dtype).float() @ vt.float()
+        m = torch.where(needed, m_new, m)
+        l = torch.where(needed, l_new, l)
+        acc = torch.where(needed[..., None], acc_new, acc)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, H, S, D).transpose(1, 2).contiguous()
+
+
+def _check_cuda(q, k, v, D) -> None:
+    if not (q.device == k.device == v.device and q.device.type == "cuda"):
+        raise ValueError(f"q, k and v must lie on one CUDA device, got "
+                         f"{q.device}, {k.device} and {v.device}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise TypeError(f"q, k and v must all be float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype} and {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("q, k and v must be contiguous in their last "
+                         "dimension")
+
+
+def flash_attention(q, k, v, *, bq=128, bk=128, causal=True):
+    """Multi-head flash attention (K4), GQA by head sharing: (B, S, H, D)
+    f32 = softmax(q k^T / sqrt(D), causal or not) v.  Under causal
+    masking the key loop stops at the diagonal (SKIP, where the TPU
+    kernel GATES future tiles; same numerics)."""
+    B, S, H, KV, D, bq, bk = _shapes(q, k, v, bq, bk)
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        return flash_attention_plain(q, k, v, bq=bq, bk=bk, causal=causal)
+    _check_cuda(q, k, v, D)
+    out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
+    err = LIBRARY.lib().flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, H, KV, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(causal), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+__all__ = ["HEAD_DIMS", "LIBRARY", "flash_attention",
+           "flash_attention_plain", "flash_attention_ref"]

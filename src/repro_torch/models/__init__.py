@@ -1,7 +1,9 @@
-"""Model descriptions: the configuration dataclasses of the fleet's
-architectures (copied from the JAX package's ``models/config.py``).
-The JAX package's ``models`` also holds the transformer itself; the
-port's comes with the LM serving path."""
+"""Models: the configuration dataclasses of the fleet's architectures
+(copied from the JAX package's ``models/config.py``) and the serving path
+of the dense decoder-only family (``layers``, ``transformer``); the other
+families come with later slices."""
 from .config import HybridConfig, MLAConfig, MoEConfig, ModelConfig
+from .transformer import ModelApi, get_api
 
-__all__ = ["HybridConfig", "MLAConfig", "MoEConfig", "ModelConfig"]
+__all__ = ["HybridConfig", "MLAConfig", "MoEConfig", "ModelConfig",
+           "ModelApi", "get_api"]
