@@ -24,7 +24,11 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    a long prefill (1, 4096, 14, 2, 64), qwen3-4b's heads (1, 2048, 32,
    8, 128), all bf16 and causal, one f32 cell and one non-causal cell,
    with kernel, plain, library (``scaled_dot_product_attention`` on the
-   repeated KV heads) and bound times;
+   repeated KV heads) and bound times, and the serving loop's refill
+   prefill (1, 512, 14, 2, 64); each K4 row names the variant that ran
+   (bf16 tensor cores or f32 FMA), and every K4 variant's registers,
+   local memory, shared memory, resident blocks per SM and spills are
+   printed;
 4. model: the whole mapspace of each of the four ResNet50 layers
    (833,400 candidates) searched on the card through ``mapper.search``;
    each winner re-validated by the scalar oracle, 512 sampled
@@ -46,7 +50,8 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    refill prefills), greedy; K4 must launch once per layer and prefill;
    prefill and decode-step times, tokens/s and request latency, then
    the device's idle share over 8 traced decode steps of a second,
-   one-wave loop;
+   one-wave loop, and the device time of a traced warm first-wave
+   prefill of a third;
 8. serve check: the card's prefill logits and KV cache against the
    port's CPU path on the same weights (full width, 2 layers, f32,
    prompt 128, so K4 runs in f32 on the card);
@@ -104,6 +109,8 @@ FLASH_CELLS = (
     ("qwen3_4b_heads", 1, 2048, 32, 8, 128, torch.bfloat16, True),
     ("serve_prefill_f32", 2, 512, 14, 2, 64, torch.float32, True),
     ("serve_prefill_noncausal", 8, 512, 14, 2, 64, torch.bfloat16, False),
+    # the serving loop's refill prefill: 192 of its 240 K4 launches
+    ("serve_refill", 1, 512, 14, 2, 64, torch.bfloat16, True),
 )
 #: the serve phase: qwen2-0.5b at full width
 SERVE = dict(arch="qwen2-0.5b", batch=8, prompt_len=512, gen=32,
@@ -378,7 +385,7 @@ def phase_flash_kernels(device="cuda", cells=FLASH_CELLS, timed=True
     """K4 against its plain version; one row per cell."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_plain, kernel_info)
     rows = []
     for name, B, S, H, KV, D, dtype, causal in cells:
         gen = torch.Generator(device=device).manual_seed(SEED)
@@ -398,6 +405,8 @@ def phase_flash_kernels(device="cuda", cells=FLASH_CELLS, timed=True
         row = {"cell": name, "shape": [B, S, H, KV, D],
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
                "max_abs_err": err, "rel_err": rel}
+        if device != "cpu":
+            row["variant"] = kernel_info(dtype, D, causal)["variant"]
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version on {name}: {row}")
@@ -429,6 +438,40 @@ def phase_flash_kernels(device="cuda", cells=FLASH_CELLS, timed=True
             del sets
         rows.append(row)
         print(f"[kernels] flash_attention {name} {row}")
+    return rows
+
+
+def k4_variants(log: str) -> list:
+    """Every K4 kernel the library holds, by type, head dim and masking:
+    registers and local memory per thread, dynamic shared memory, and
+    resident blocks per SM from the CUDA runtime, spill bytes (stores
+    plus loads) from the compiler's report ``log`` (None where the
+    library was cached and there is no report)."""
+    import re
+    from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
+                                                         kernel_info)
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?(wg|fma)_kernelILi(\d+)"
+                      r"ELb([01])E", line)
+        if m:
+            name = (m.group(1), int(m.group(2)), m.group(3) == "1")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in HEAD_DIMS:
+            kind = "fma" if dtype == torch.float32 else "wg"
+            for causal in (True, False):
+                rows.append({"dtype": str(dtype).replace("torch.", ""),
+                             "D": D, "causal": causal,
+                             **kernel_info(dtype, D, causal),
+                             "spill_bytes": spills.get((kind, D, causal))})
+                print(f"[build] flash_attention variant {rows[-1]}")
     return rows
 
 
@@ -718,7 +761,8 @@ def phase_serve(device="cuda", arch=SERVE["arch"], reduced=False,
     launched once per layer and prefill on the card; prefill and
     decode-step times, tokens/s and latency from an untraced run, then
     the device's idle share over ``trace_steps`` decode steps of a
-    second loop (one wave) on the same weights."""
+    second loop (one wave) on the same weights, and the device time of
+    a third loop's traced first-wave prefill."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch.serve import ServeLoop
     cfg, api, model = _serve_model(device, arch, reduced=reduced)
@@ -755,7 +799,12 @@ def phase_serve(device="cuda", arch=SERVE["arch"], reduced=False,
     busy = _device_busy(lambda: [traced.step()
                                  for _ in range(trace_steps)], device)
     busy["steps"] = trace_steps
-    prefills = loop.prefills + traced.prefills
+    # one more warm first-wave prefill, traced: the device time that the
+    # host-bound wall time hides, K4's 24 launches among it
+    waves = []
+    prefill_busy = _device_busy(lambda: waves.append(new_loop(batch, 1)),
+                                device)
+    prefills = loop.prefills + traced.prefills + waves[0][0].prefills
     want = cfg.num_layers * prefills
     if device != "cpu" and flash_attention.launches != want:
         raise AssertionError(f"serve: K4 launched {flash_attention.launches}"
@@ -774,7 +823,8 @@ def phase_serve(device="cuda", arch=SERVE["arch"], reduced=False,
            "decode_step_ms_max": max(step_ms),
            "tokens_per_s": res["tokens_per_s"],
            "latency_p50_s": lat["p50_s"], "latency_p99_s": lat["p99_s"],
-           "latency_max_s": lat["max_s"], "traced_decode": busy}
+           "latency_max_s": lat["max_s"], "traced_decode": busy,
+           "traced_prefill": prefill_busy}
     print(f"[serve] {json.dumps(out)}")
     return out
 
@@ -853,7 +903,8 @@ KERNELS = (
      "src/repro/kernels/nm_spmm/kernel.py:66",
      "src/repro_torch/kernels/nm_spmm/csrc/nm_spmm.cu", "lm_head"),
     ("flash_attention", "K4 flash attention (causal SKIP at the diagonal; "
-     "GQA by head sharing)",
+     "GQA by head sharing; bf16: wgmma on the tensor cores fed by a TMA "
+     "ring; f32: FMA)",
      "src/repro/kernels/flash_attention/kernel.py:76",
      "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
      "serve_prefill"),
@@ -876,6 +927,7 @@ def main() -> int:
           f"{torch.version.cuda}")
     t_start = time.perf_counter()
     build = phase_build()
+    build["k4_variants"] = k4_variants(fa_ops.LIBRARY.log)
     kernel_rows = phase_kernels()
     kernel_rows["nm_spmm"] = phase_nm_kernels()
     kernel_rows["flash_attention"] = phase_flash_kernels()
@@ -920,7 +972,8 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "headline_cell": cell,
             "cells": kernel_rows[name]})
-    summary = {"build_s": build["seconds"], "model": model,
+    summary = {"build_s": build["seconds"],
+               "k4_variants": build["k4_variants"], "model": model,
                "fleet": fleet, "serve": serve,
                "serve_check": serve_check, "profile": profile,
                "main_path": per_phase,

@@ -16,11 +16,27 @@ returns (B, S, H, D) f32.  ``bq = min(bq, S)`` and ``bk = min(bk, S)``,
 and ``S % bq`` or ``S % bk`` not 0 raises ``ValueError`` where the
 reference asserts.  Under causal masking the kernel's key loop stops at
 the diagonal: future key tiles are SKIPPED, where the TPU kernel GATED
-them with ``pl.when``; the numerics are the same.  The kernel takes
-f32 or bf16 and D in {16, 32, 64, 128}, reads q, k and v through their
-strides (last dimension contiguous) and never repeats K/V heads in
-memory; its key tile is its own, so ``bq``/``bk`` only decide which
-shapes are legal.
+them with ``pl.when``; the numerics are the same.  The kernel takes D in
+{16, 32, 64, 128}, reads q, k and v through their strides (last dimension
+contiguous) and never repeats K/V heads in memory; its key tile is its
+own, so ``bq``/``bk`` only decide which shapes are legal.
+
+The input type picks the variant (``kernel_info``).  At
+the serve prefill cell (8, 512, 14, 2, 64, bf16, causal) the function's
+bound on an H100 is its bytes, 7.2 us at 3.35 TB/s; the first version of
+the kernel did its products on the f32 FMA pipes with synchronous loads
+and took 0.166 ms there.  bf16 runs on the tensor cores: one warpgroup
+issues ``wgmma`` for both products, with P kept in registers, while a
+producer warp brings K/V tiles by TMA into a ring of shared-memory
+stages.  The chain of product, softmax and product inside a block bounds
+it, and several resident blocks per SM hide it (the source note says
+how).  TMA reads 16-byte aligned rows: bf16 inputs need 16-byte aligned
+pointers and strides that are multiples of 8 elements, and a view that
+is not raises, as does a head dim without a kernel.  f32 stays on the
+FMA kernel, bound by the f32 FMA pipes: the tensor cores' TF32 would
+keep about three decimal digits, where the f32 checks need full f32,
+and the FMA kernel is already faster than PyTorch's f32 attention at
+the serve shape.
 """
 from __future__ import annotations
 
@@ -37,10 +53,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: ``csrc/flash_attention.cu``, built at first use (``kernels.nvcc``)
 LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    {"flash_attention": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I, _I, _P]})
+    {"flash_attention": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I, _I, _P],
+     "flash_attention_info": [_I, _I, _I, _P]})
 #: the head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
+#: the variants ``flash_attention_info`` of the library reports
+VARIANTS = {1: "bf16 tensor cores (wgmma, TMA ring)", 0: "f32 FMA"}
 
 
 def _shapes(q, k, v, bq, bk):
@@ -124,6 +143,31 @@ def _check_cuda(q, k, v, D) -> None:
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k and v must be contiguous in their last "
                          "dimension")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+                raise ValueError(
+                    f"bf16 {name} is read 16 bytes at a time: it needs a "
+                    f"16-byte aligned start and strides that are multiples "
+                    f"of 8, got offset {x.data_ptr() % 16} and strides "
+                    f"{tuple(x.stride())}")
+
+
+def kernel_info(dtype, D: int, causal: bool = True) -> dict:
+    """What the library runs for inputs of ``dtype`` and head dim ``D``:
+    the variant, registers and local memory (spills, stack) per thread,
+    dynamic shared memory per block and resident blocks per SM, from the
+    CUDA runtime (builds the library); raises where it has no kernel."""
+    if dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS:
+        raise ValueError(f"no flash-attention kernel for {dtype} at D {D}")
+    info = (ctypes.c_int * 5)()
+    err = LIBRARY.lib().flash_attention_info(
+        D, int(dtype == torch.bfloat16), int(causal), info)
+    if err:
+        raise RuntimeError(f"flash_attention_info failed: CUDA error {err}")
+    return {"variant": VARIANTS[info[0]], "registers": info[1],
+            "local_bytes": info[2], "smem_bytes": info[3],
+            "blocks_per_sm": info[4]}
 
 
 def flash_attention(q, k, v, *, bq=128, bk=128, causal=True):
@@ -151,4 +195,4 @@ def flash_attention(q, k, v, *, bq=128, bk=128, causal=True):
 flash_attention.launches = 0
 
 __all__ = ["HEAD_DIMS", "LIBRARY", "flash_attention",
-           "flash_attention_plain", "flash_attention_ref"]
+           "flash_attention_plain", "flash_attention_ref", "kernel_info"]

@@ -144,15 +144,15 @@ def _cuda_or_skip():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,tile", [(256, 128), (96, 32)])
+@pytest.mark.parametrize("S,tile", [(256, 128), (96, 32), (192, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_cuda_kernel_matches_plain_version(D, dtype, causal, S, tile):
     """On the card: K4 against its plain version at 14 query heads over 2
     KV heads (f32 1e-5 of the largest magnitude; bf16 atol = rtol =
-    3e-2), each launch counted; S = 96 leaves the kernel's last key and
-    query tiles ragged."""
+    3e-2), each launch counted; S = 96 and 192 are not multiples of the
+    kernel's 64-key tiles, so its last key and query tiles are ragged."""
     dev = _cuda_or_skip()
     _, (tq, tk, tv) = _case(2, S, 14, 2, D, dtype, D + S)
     tq, tk, tv = (x.to(dev) for x in (tq, tk, tv))
@@ -186,3 +186,81 @@ def test_sdpa_dispatches_to_kernel_on_cuda():
     sdpa(tq[:, :64].to(dev), tk[:, :64].to(dev), tv[:, :64].to(dev),
          pos[:64].to(dev), pos[:64].to(dev))
     assert ops.flash_attention.launches == before + 1
+
+
+def _on_card(dev, B, S, H, KV, D, seed):
+    _, (tq, tk, tv) = _case(B, S, H, KV, D, "bfloat16", seed)
+    return tuple(x.to(dev) for x in (tq, tk, tv))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,causal", [
+    (1, 512, 14, 2, 64, True),      # the serving loop's refill prefill
+    (1, 512, 14, 2, 64, False),
+    (2, 192, 4, 4, 64, True),       # GQA rep 1
+    (2, 96, 14, 2, 32, True),       # GQA rep 7, ragged
+    (1, 192, 7, 1, 16, False),
+    (1, 320, 32, 8, 128, True),     # qwen3-4b's heads, ragged at 64
+])
+def test_cuda_bf16_kernel_shapes(B, S, H, KV, D, causal):
+    """On the card: the bf16 tensor-core variant against the plain
+    version (atol = rtol = 3e-2) at the shapes its design risks: one
+    batch row, lengths that are not multiples of 64, head dims 16 to 128,
+    one and seven query heads per KV head."""
+    dev = _cuda_or_skip()
+    tq, tk, tv = _on_card(dev, B, S, H, KV, D, S + D + H)
+    tile = 64 if S % 64 == 0 else 32
+    kw = dict(bq=tile, bk=tile, causal=causal)
+    before = ops.flash_attention.launches
+    got = flash_attention(tq, tk, tv, **kw)
+    want = flash_attention_plain(tq, tk, tv, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert "tensor cores" in ops.kernel_info(torch.bfloat16, D)["variant"]
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_bf16_fused_qkv_views(causal):
+    """On the card: q, k and v as strided views of one fused
+    (B, S, H + 2 KV, D) projection, read in place, agree with the plain
+    version on contiguous copies."""
+    dev = _cuda_or_skip()
+    B, S, H, KV, D = 2, 192, 14, 2, 64
+    rng = np.random.default_rng(21)
+    fused = torch.from_numpy(rng.normal(size=(B, S, H + 2 * KV, D))).to(
+        torch.bfloat16).to(dev)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + KV], fused[:, :, H + KV:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    got = flash_attention(q, k, v, bq=64, bk=64, causal=causal)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), bq=64, bk=64,
+                                 causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_inputs_it_cannot_take_raise():
+    """On the card: a bf16 view whose start is not 16-byte aligned, or
+    whose strides are not multiples of 8 elements, raises before any
+    launch, as does a head dim without a kernel; an aligned view of the
+    same storage runs."""
+    dev = _cuda_or_skip()
+    base = torch.randn((1, 128, 2, 80), device=dev).to(torch.bfloat16)
+    odd = torch.randn((1, 128, 2, 68), device=dev).to(torch.bfloat16)
+    before = ops.flash_attention.launches
+    for bad in (base[..., 1:65], odd[..., :64]):
+        with pytest.raises(ValueError, match="16 bytes at a time"):
+            flash_attention(bad, bad, bad)
+    x48 = base[..., :48]
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(x48, x48, x48)
+    assert ops.flash_attention.launches == before
+    good = base[..., 8:72]
+    got = flash_attention(good, good, good)
+    want = flash_attention_plain(good, good, good)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
