@@ -18,8 +18,13 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    and lm_head 8x896x151936, 64-wide blocks, density 0.25, seed 0) and
    one bf16 cell at the ffn_down shape (128x4864x896); K3 against its
    plain version at 2:4 on the same two f32 cells and the bf16 cell,
-   with int8 and with bit-packed offsets; each with kernel, plain,
-   library (torch.matmul) and bound times; K4 against its plain version
+   with int8 and with bit-packed offsets, each row naming the path,
+   kernel and K split that ran (``ops.plan``) and holding a repeat
+   launch to the same bits; each with kernel, plain, library
+   (torch.matmul) and bound times; every K3 variant's stage, registers,
+   local memory, shared memory, resident blocks per SM and spills are
+   printed as ``[build] nm_spmm variant`` lines; K4 against its plain
+   version
    on the serve prefill cell (B 8, S 512, 14 heads, 2 KV heads, D 64),
    a long prefill (1, 4096, 14, 2, 64), qwen3-4b's heads (1, 2048, 32,
    8, 128), all bf16 and causal, one f32 cell and one non-causal cell,
@@ -123,7 +128,6 @@ FLASH_BF16_TOL = 3e-2   # atol = rtol of the JAX package's bf16 flash test
 #: taken in another order over 2 layers (the CPU tests' bound)
 SERVE_LOGITS_TOL = 1e-4
 BF16_TOL = 0.3          # atol = rtol of the JAX package's bf16 block test
-NM_BF16_TOL = 0.25      # atol = rtol of the JAX package's bf16 N:M test
 ORACLE_REL = 1e-6       # batched engine vs the scalar oracle
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -313,13 +317,16 @@ def phase_kernels(device="cuda", cells=None, timed=True) -> dict:
 def phase_nm_kernels(device="cuda", cells=None, timed=True) -> list:
     """K3 against its plain version at 2:4, with int8 and with packed
     offsets; returns one row per (cell, offsets layout)."""
-    from repro_torch.kernels.nm_spmm.ops import nm_spmm, nm_spmm_plain
+    from repro_torch.kernels.nm_spmm.ops import (H100_SMS, nm_spmm,
+                                                 nm_spmm_plain, plan,
+                                                 sm_count)
     from repro_torch.sparsity import (nm_prune_dense, offsets_bits,
                                       pack_nm, pack_offsets)
     n, m = NM
     cells = cells or ([(c, M, K, N, torch.float32)
                        for c, M, K, N in QWEN2_CELLS]
                       + [(*BF16_CELL, torch.bfloat16)])
+    sms = sm_count(device) if device != "cpu" else H100_SMS
     rows = []
     for layer, M, K, N, dtype in cells:
         rng = np.random.default_rng(SEED)
@@ -343,17 +350,30 @@ def phase_nm_kernels(device="cuda", cells=None, timed=True) -> list:
                 return nm_spmm_plain(a_, v_, o_, **kw)
 
             got, want = kern(a, vals, offs), plain(a, vals, offs)
+            again = kern(a, vals, offs)
             if device != "cpu":
                 torch.cuda.synchronize()
-            err, rel, ok = _compare(got, want, dtype, NM_BF16_TOL)
+            # both sides multiply the same bf16 or f32 inputs in f32 and
+            # sum in f32: only the order of the sums differs, so both
+            # types are held to F32_TOL of the largest magnitude
+            err, rel, ok = _compare(got, want, torch.float32)
+            # the path, K split and grid that ran (ops.plan)
+            p = plan(M, K, N, n, m, dtype, sms)
             row = {"cell": layer, "shape": [M, K, N],
                    "dtype": str(dtype).replace("torch.", ""),
                    "packed": packed, "offset_bits": offsets_bits(m)
                    if packed else 8, "bm_bk_bn": [min(BS, M), BS, BS],
-                   "max_abs_err": err, "rel_err": rel}
+                   "path": p.path, "kernel": p.kernel, "split": p.split,
+                   "slice_groups": p.slice_groups, "grid": list(p.grid),
+                   "waves": p.waves(sms),
+                   "max_abs_err": err, "rel_err": rel,
+                   "repeat_bit_identical": bool(torch.equal(got, again))}
             if not ok:
                 raise AssertionError(f"nm_spmm disagrees with its plain "
                                      f"version on {layer}: {row}")
+            if not row["repeat_bit_identical"]:
+                raise AssertionError(f"nm_spmm gave other bits on a repeat "
+                                     f"launch on {layer}: {row}")
             if timed:
                 # the bytes the function must move: A, the kept values,
                 # the offsets in the layout used, the f32 output
@@ -472,6 +492,46 @@ def k4_variants(log: str) -> list:
                              **kernel_info(dtype, D, causal),
                              "spill_bytes": spills.get((kind, D, causal))})
                 print(f"[build] flash_attention variant {rows[-1]}")
+    return rows
+
+
+def nm_variants(log: str) -> list:
+    """Every K3 kernel the library holds, by path, type, (n, m) and
+    offsets layout: m-groups per stage, registers and local memory per
+    thread, dynamic shared memory, resident blocks per SM from the CUDA
+    runtime, spill bytes (stores plus loads) from the compiler's report
+    ``log`` (None where the library was cached and there is no report)."""
+    import re
+    from repro_torch.kernels.nm_spmm.ops import NM_PAIRS, kernel_info
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?(narrow|wide)_kernelILi"
+                      r"(\d)ELi(\d)E(?:(f|13__nv_bfloat16)|Li(\d+)E)Lb([01])E",
+                      line)
+        if m:
+            name = (m.group(1) + (m.group(5) or ""), m.group(4) != "f",
+                    int(m.group(2)), int(m.group(3)), m.group(6) == "1")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    rows = []
+    for kernel, dtypes in (("narrow", (torch.float32, torch.bfloat16)),
+                           ("wide64", (torch.bfloat16,)),
+                           ("wide128", (torch.bfloat16,))):
+        for dtype in dtypes:
+            for n, m in NM_PAIRS:
+                for packed in (False, True):
+                    rows.append({
+                        "kernel": kernel,
+                        "dtype": str(dtype).replace("torch.", ""),
+                        "nm": f"{n}:{m}", "packed": packed,
+                        **kernel_info(kernel, dtype, n, m, packed),
+                        "spill_bytes": spills.get(
+                            (kernel, dtype == torch.bfloat16, n, m, packed))})
+                    print(f"[build] nm_spmm variant {rows[-1]}")
     return rows
 
 
@@ -899,7 +959,9 @@ KERNELS = (
      "src/repro/kernels/block_mm/kernel.py:49",
      "src/repro_torch/kernels/block_mm/csrc/block_mm.cu", "lm_head"),
     ("nm_spmm", "K3 N:M structured-sparse matmul (2:4, int8 offsets; "
-     "packed offsets in cells)",
+     "packed offsets in cells; narrow path on the CUDA cores at M <= 32 "
+     "and f32, wide bf16 path on the tensor cores (mma.sync); split K "
+     "reduced in a fixed order inside a cluster)",
      "src/repro/kernels/nm_spmm/kernel.py:66",
      "src/repro_torch/kernels/nm_spmm/csrc/nm_spmm.cu", "lm_head"),
     ("flash_attention", "K4 flash attention (causal SKIP at the diagonal; "
@@ -928,6 +990,7 @@ def main() -> int:
     t_start = time.perf_counter()
     build = phase_build()
     build["k4_variants"] = k4_variants(fa_ops.LIBRARY.log)
+    build["k3_variants"] = nm_variants(nm_ops.LIBRARY.log)
     kernel_rows = phase_kernels()
     kernel_rows["nm_spmm"] = phase_nm_kernels()
     kernel_rows["flash_attention"] = phase_flash_kernels()
@@ -973,7 +1036,8 @@ def main() -> int:
             "library_ms": head["library_ms"], "headline_cell": cell,
             "cells": kernel_rows[name]})
     summary = {"build_s": build["seconds"],
-               "k4_variants": build["k4_variants"], "model": model,
+               "k4_variants": build["k4_variants"],
+               "k3_variants": build["k3_variants"], "model": model,
                "fleet": fleet, "serve": serve,
                "serve_check": serve_check, "profile": profile,
                "main_path": per_phase,

@@ -16,12 +16,26 @@ bf16; ``w_vals`` (K/m*n, N) of A's type; ``w_idx`` the CP offsets, int8
 min(bm, M)``, likewise ``bk``, ``bn``), and what the reference asserts
 raises: ``K % bk``, ``bk % m``, ``M % bm``, ``N % bn`` and, packed,
 ``(bk/m*n) % per``.  The kernel takes ``bm`` in {8, 16, 32, 64, 128},
-``bn`` in {32, 64, 128} and (n, m) in :data:`NM_PAIRS`; it walks K in
-steps of its own, so ``bk`` only decides which shapes are legal.
+``bn`` in {32, 64, 128} and (n, m) in :data:`NM_PAIRS`; ``bm``, ``bk``
+and ``bn`` only decide which shapes are legal: the kernel picks its own
+tiles.
+
+Which kernel runs, its K split and its tiles come from :func:`plan`, a
+pure function of (M, K, N, n, m, dtype, SM count) that the wrapper
+passes to the C interface: the narrow path (f32 at any M, bf16 at M <=
+32) on the CUDA cores, 16 bytes of neighbouring columns per thread; the
+wide path (bf16, M > 32, K % 8 == 0) on the tensor cores.  Both split K
+into slices of whole ring stages, reduced in a fixed order inside one
+thread-block cluster, so that repeated calls give the same bits.  The
+kernel reads 16 bytes of columns at a time: N must be a multiple of 16
+(every N that a legal ``bn`` divides is) and the three inputs 16-byte
+aligned, else the wrapper raises.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -34,11 +48,121 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``csrc/nm_spmm.cu``, built at first use (``kernels.nvcc``)
 LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "nm_spmm.cu",
-    {"nm_spmm": [_P, _P, _P, _P] + [_I] * 9 + [_P]})
+    {"nm_spmm": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+     "nm_spmm_info": [_I] * 5 + [_P]})
 #: the (n, m) patterns the kernel is built for: the JAX package's set
 NM_PAIRS = ((2, 4), (1, 4), (2, 6), (2, 8), (4, 8))
 _KERNEL_BM = (8, 16, 32, 64, 128)
 _KERNEL_BN = (32, 64, 128)
+#: the kernels of ``csrc/nm_spmm.cu``, by the number the C interface
+#: takes: the narrow path, and the wide one with 64- and 128-row tiles
+KERNELS = {"narrow": 0, "wide64": 1, "wide128": 2}
+#: SMs of an H100 SXM, the plan's default
+H100_SMS = 132
+#: K-slices of one output tile at most: one cluster (16 blocks, past
+#: the portable 8)
+MAX_SPLIT = 16
+#: the narrow path's block: groups of 16 bytes of neighbouring columns,
+#: output rows, and compressed rows per ring stage
+NARROW_GROUPS, NARROW_ROWS, NARROW_STAGE_ROWS = 64, 8, 8
+#: the wide path's output tile columns; its rows are 64, or 128 above
+#: M = 64; bf16 at M above NARROW_MAX_M goes wide
+WIDE_COLS = 64
+NARROW_MAX_M = 32
+#: blocks the plan wants in the grid, in waves of one block per SM
+WAVES = 2
+#: the kernel reads (and the C interface requires) N in multiples of 16
+COLUMN_GROUP = 16
+
+
+@dataclass(frozen=True)
+class Plan:
+    """What ``csrc/nm_spmm.cu`` runs for one shape: the path, the K-slices
+    of one output tile (``split``, one cluster) of ``slice_groups``
+    m-groups each (the last may hold fewer), the groups per ring stage,
+    the output tile of a block and the grid (split, row tiles, column
+    tiles)."""
+    path: str
+    split: int
+    slice_groups: int
+    stage_groups: int
+    tile: tuple
+    grid: tuple
+
+    @property
+    def kernel(self) -> str:
+        """The library's kernel: ``narrow``, ``wide64`` or ``wide128``."""
+        return "narrow" if self.path == "narrow" else f"wide{self.tile[0]}"
+
+    @property
+    def blocks(self) -> int:
+        return math.prod(self.grid)
+
+    def waves(self, sms: int = H100_SMS) -> float:
+        return self.blocks / sms
+
+
+def stage_groups(path: str, n: int, m: int) -> int:
+    """m-groups per ring stage: narrow stages hold 8 compressed rows,
+    wide ones 64 dense k rows (48 at m = 6: whole groups, 16-deep
+    products)."""
+    if path == "narrow":
+        return NARROW_STAGE_ROWS // n
+    return (48 if m == 6 else 64) // m
+
+
+def plan(M: int, K: int, N: int, n: int, m: int, dtype,
+         sms: int = H100_SMS) -> Plan:
+    """The kernel's path, K split and tiles for (M, K, N) at n:m.
+
+    bf16 with M above 32 and K % 8 == 0 takes the wide path (tensor
+    cores, tiles of 64 columns by 64 rows, 128 above M = 64);
+    everything else, f32 always, the narrow one (CUDA cores, 8 rows by
+    64 x 16 bytes of columns).  Both aim at two waves of blocks
+    on ``sms`` SMs: K/m is cut into a power of two of slices, at most
+    16, of whole stages, which hold whole groups and whole bytes of
+    packed offsets; raises for shapes the kernel does not take."""
+    if (n, m) not in NM_PAIRS or K % m or M <= 0 or K <= 0 or N <= 0:
+        raise ValueError(f"no N:M kernel for ({M}, {K}, {N}) at {n}:{m}")
+    if N % COLUMN_GROUP:
+        raise ValueError(f"N={N} is not a multiple of {COLUMN_GROUP}: the "
+                         f"kernel reads 16 bytes of neighbouring columns")
+    bf16 = dtype == torch.bfloat16
+    if bf16 and M > NARROW_MAX_M and K % 8 == 0:
+        path, tile = "wide", (64 if M <= 64 else 128, WIDE_COLS)
+    else:
+        if M % NARROW_ROWS:
+            raise ValueError(f"M={M} is not a multiple of {NARROW_ROWS}")
+        path = "narrow"
+        tile = (NARROW_ROWS, NARROW_GROUPS * (8 if bf16 else 4))
+    tiles = math.ceil(M / tile[0]) * math.ceil(N / tile[1])
+    groups, sg = K // m, stage_groups(path, n, m)
+    split = 1 << (math.ceil(WAVES * sms / tiles) - 1).bit_length()
+    split = min(MAX_SPLIT, split, math.ceil(groups / sg))
+    gs = math.ceil(math.ceil(groups / split) / sg) * sg
+    split = math.ceil(groups / gs)
+    return Plan(path, split, gs, sg, tile,
+                (split, math.ceil(M / tile[0]), math.ceil(N / tile[1])))
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernel_info(kernel: str, dtype, n: int, m: int, packed: bool) -> dict:
+    """What the library holds for one variant: m-groups per stage,
+    registers and local memory (spills, stack) per thread, dynamic shared
+    memory per block, resident blocks per SM and threads per block, from
+    the CUDA runtime (builds the library); raises where it has none."""
+    info = (ctypes.c_int * 6)()
+    err = LIBRARY.lib().nm_spmm_info(n, m, int(packed), KERNELS[kernel],
+                                     int(dtype == torch.bfloat16), info)
+    if err:
+        raise RuntimeError(f"nm_spmm_info failed: CUDA error {err}")
+    return {"stage_groups": info[0], "registers": info[1],
+            "local_bytes": info[2], "smem_bytes": info[3],
+            "blocks_per_sm": info[4], "threads": info[5]}
 
 
 def _tiles(a, w_vals, w_idx, n, m, bm, bk, bn, packed):
@@ -112,6 +236,9 @@ def _check_cuda(a, w_vals, w_idx, n, m, bm, bn, packed) -> None:
     if not (a.is_contiguous() and w_vals.is_contiguous()
             and w_idx.is_contiguous()):
         raise ValueError("a, w_vals and w_idx must be contiguous")
+    if any(x.data_ptr() % 16 for x in (a, w_vals, w_idx)):
+        raise ValueError("a, w_vals and w_idx must start 16-byte aligned: "
+                         "the kernel copies 16 bytes at a time")
     if (n, m) not in NM_PAIRS or bm not in _KERNEL_BM \
             or bn not in _KERNEL_BN:
         raise ValueError(f"the kernel takes (n, m) in {NM_PAIRS}, bm in "
@@ -129,10 +256,12 @@ def nm_spmm(a, w_vals, w_idx, *, n=2, m=4, bm=128, bk=128, bn=128,
         return nm_spmm_plain(a, w_vals, w_idx, n=n, m=m, bm=bm, bk=bk,
                              bn=bn, packed=packed)
     _check_cuda(a, w_vals, w_idx, n, m, bm, bn, packed)
+    p = plan(M, K, N, n, m, a.dtype, sm_count(a.device))
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     err = LIBRARY.lib().nm_spmm(
         a.data_ptr(), w_vals.data_ptr(), w_idx.data_ptr(), out.data_ptr(),
-        M, K, N, n, m, bm, bn, int(packed), int(a.dtype == torch.bfloat16),
+        M, K, N, n, m, int(packed), int(a.dtype == torch.bfloat16),
+        KERNELS[p.kernel], p.split, p.slice_groups,
         torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"nm_spmm kernel launch failed: CUDA error "
@@ -143,5 +272,5 @@ def nm_spmm(a, w_vals, w_idx, *, n=2, m=4, bm=128, bk=128, bn=128,
 
 nm_spmm.launches = 0
 
-__all__ = ["LIBRARY", "NM_PAIRS", "nm_spmm", "nm_spmm_plain",
-           "nm_spmm_ref"]
+__all__ = ["LIBRARY", "NM_PAIRS", "Plan", "kernel_info", "nm_spmm",
+           "nm_spmm_plain", "nm_spmm_ref", "plan"]
