@@ -16,7 +16,16 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
 3. kernels: K1 and K2 against their plain PyTorch versions on the
    qwen2-0.5b full-width decode cells (batch 8: ffn_gate_up 8x896x9728
    and lm_head 8x896x151936, 64-wide blocks, density 0.25, seed 0) and
-   one bf16 cell at the ffn_down shape (128x4864x896); K3 against its
+   one bf16 cell at the ffn_down shape (128x4864x896), held to 1e-5 of
+   the largest magnitude in both types, each row naming the path,
+   kernel and K split that ran (``ops.plan``) and holding a repeat
+   launch to the same bits; at the f32 cells K1 is also timed on the
+   full block list and the three block agreement arms' ratios printed;
+   at lm_head K2 with an all-zero mask must take at least 0.8 of its
+   all-ones time (its copies are never under the mask); every K1/K2
+   variant's registers, local memory, shared memory, resident blocks
+   per SM and spills are printed as ``[build] block_mm variant`` lines;
+   K3 against its
    plain version at 2:4 on the same two f32 cells and the bf16 cell,
    with int8 and with bit-packed offsets, each row naming the path,
    kernel and K split that ran (``ops.plan``) and holding a repeat
@@ -122,12 +131,17 @@ SERVE = dict(arch="qwen2-0.5b", batch=8, prompt_len=512, gen=32,
              requests=16)
 #: decode steps traced for the device's idle share
 SERVE_TRACE_STEPS = 8
-F32_TOL = 1e-5          # max|kernel - plain| / max|plain|
+#: max|kernel - plain| / max|plain| for K1-K3 in f32 and bf16 alike (both
+#: sides multiply the same inputs in f32 and sum in f32: only the order of
+#: the sums differs), and for K4 in f32
+F32_TOL = 1e-5
 FLASH_BF16_TOL = 3e-2   # atol = rtol of the JAX package's bf16 flash test
 #: card vs CPU prefill logits, relative to the largest |logit|: f32 sums
 #: taken in another order over 2 layers (the CPU tests' bound)
 SERVE_LOGITS_TOL = 1e-4
-BF16_TOL = 0.3          # atol = rtol of the JAX package's bf16 block test
+#: K2 with an all-zero mask against an all-ones mask at lm_head: below
+#: this ratio its copies went under the mask and GATE turned into SKIP
+GATE_ZERO_MASK_MIN = 0.8
 ORACLE_REL = 1e-6       # batched engine vs the scalar oracle
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -232,33 +246,43 @@ def _cell_inputs(M, K, N, dtype, device):
     return x
 
 
-def _compare(got, want, dtype, bf16_tol=BF16_TOL
-             ) -> tuple[float, float, bool]:
+def _compare(got, want, dtype, bf16_tol=None) -> tuple[float, float, bool]:
+    """Max abs error, max error relative to the largest |want|, and
+    whether it holds: relative F32_TOL, or for bf16 with ``bf16_tol``
+    (K4) elementwise ``bf16_tol + bf16_tol * |want|``."""
     err = float((got - want).abs().max())
     rel = err / max(1e-30, float(want.abs().max()))
-    if dtype == torch.float32:
-        ok = rel <= F32_TOL
-    else:
+    if dtype == torch.bfloat16 and bf16_tol is not None:
         ok = bool(((got - want).abs()
                    <= bf16_tol + bf16_tol * want.abs()).all())
+    else:
+        ok = rel <= F32_TOL
     return err, rel, ok
 
 
 def phase_kernels(device="cuda", cells=None, timed=True) -> dict:
     """K1 and K2 against their plain versions; returns per-kernel rows
-    for every cell checked."""
-    from repro_torch.kernels.block_mm.ops import (block_list, gated_mm,
-                                                  gated_mm_plain, skip_mm,
-                                                  skip_mm_plain)
+    for every cell checked.  Each row names the path, kernel and K split
+    that ran and holds a repeat launch to the same bits; at the f32 cells
+    K1 is also timed on the full block list, and the three block
+    agreement arms' ratios are printed; at lm_head K2 is timed with an
+    all-zero and an all-ones mask."""
+    from repro_torch.fleet.validate import GATE_NEUTRAL, WIN_THRESHOLD
+    from repro_torch.kernels.block_mm.ops import (H100_SMS, block_list,
+                                                  gated_mm, gated_mm_plain,
+                                                  plan, skip_mm,
+                                                  skip_mm_plain, sm_count)
     cells = cells or ([(n, M, K, N, torch.float32)
                        for n, M, K, N in QWEN2_CELLS]
                       + [(*BF16_CELL, torch.bfloat16)])
+    sms = sm_count(device) if device != "cpu" else H100_SMS
     rows = {"skip_mm": [], "gated_mm": []}
     for layer, M, K, N, dtype in cells:
         x = _cell_inputs(M, K, N, dtype, device)
         a, w, wm, mask = x["a"], x["w"], x["wm"], x["mask"]
         ks, js = x["nonzero"]
         blocks = block_list(ks, js, mask.shape, device)
+        full = block_list(*x["full"], mask.shape, device)
         elt = a.element_size()
         nnzb, nblocks = int(mask.sum()), mask.size
         kw = dict(bm=BS, bk=BS, bn=BS)
@@ -266,31 +290,43 @@ def phase_kernels(device="cuda", cells=None, timed=True) -> dict:
         # K1 on the masked W, K2 on the unmasked W (the mask must be
         # honoured by the kernel, not by zeros in W)
         # per kernel: the W bytes it must read, its block-list or mask
-        # bytes, and the blocks it multiplies
+        # bytes, the blocks it multiplies and the run the plan sees
         checks = {
             "skip_mm": (lambda a_, w_: skip_mm(a_, w_, blocks, **kw),
                         lambda a_, w_: skip_mm_plain(a_, w_, ks, js, **kw),
                         wm, len(ks) * BS * BS * elt,
-                        (len(ks) + N // BS + 1) * 4, len(ks)),
+                        (len(ks) + N // BS + 1) * 4, len(ks),
+                        blocks.max_run),
             "gated_mm": (lambda a_, w_: gated_mm(a_, w_, x["mask_dev"],
                                                  **kw),
                          lambda a_, w_: gated_mm_plain(a_, w_,
                                                        x["mask_dev"], **kw),
-                         w, K * N * elt, nblocks * 4, nnzb),
+                         w, K * N * elt, nblocks * 4, nnzb, None),
         }
         for name, (kern, plain, w_in, w_bytes, index_bytes,
-                   blocks_done) in checks.items():
+                   blocks_done, run) in checks.items():
             got, want = kern(a, w_in), plain(a, w_in)
+            again = kern(a, w_in)
             if device != "cpu":
                 torch.cuda.synchronize()
             err, rel, ok = _compare(got, want, dtype)
+            # the path, K split and grid that ran (ops.plan)
+            p = plan(M, K, N, bm, BS, BS, dtype, sms, run)
             row = {"cell": layer, "shape": [M, K, N],
                    "dtype": str(dtype).replace("torch.", ""),
                    "bm_bk_bn": [bm, BS, BS], "nnzb": nnzb,
-                   "blocks": nblocks, "max_abs_err": err, "rel_err": rel}
+                   "blocks": nblocks, "path": p.path, "kernel": p.kernel,
+                   "split": p.split, "slice_blocks": p.slice_blocks,
+                   "tile": list(p.tile), "grid": list(p.grid),
+                   "waves": p.waves(sms), "max_abs_err": err,
+                   "rel_err": rel,
+                   "repeat_bit_identical": bool(torch.equal(got, again))}
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version on {layer}: {row}")
+            if not row["repeat_bit_identical"]:
+                raise AssertionError(f"{name} gave other bits on a repeat "
+                                     f"launch on {layer}: {row}")
             if timed:
                 byte_count = M * K * elt + w_bytes + M * N * 4 + index_bytes
                 ops = 2.0 * M * BS * BS * blocks_done
@@ -301,6 +337,36 @@ def phase_kernels(device="cuda", cells=None, timed=True) -> dict:
                 sets = [(a.clone(), w_in.clone()) for _ in range(n_sets)]
                 row.update(ms=time_ms(kern, sets, graph=True),
                            plain_ms=time_ms(plain, sets, graph=False))
+                if name == "skip_mm" and dtype == torch.float32:
+                    # the skip-time and gate-time arms' numerator: K1 on
+                    # the full block list of the unmasked W
+                    full_sets = [(s[0], w.clone()) for s in sets]
+                    row["full_list_ms"] = time_ms(
+                        lambda a_, w_: skip_mm(a_, w_, full, **kw),
+                        full_sets, graph=True)
+                    del full_sets
+                if name == "gated_mm" and layer == "lm_head":
+                    # GATE pays for every block's bytes: with nothing to
+                    # multiply it must take about as long as with all
+                    zero = torch.zeros_like(x["mask_dev"])
+                    ones = torch.ones_like(x["mask_dev"])
+                    row["zero_mask_ms"] = time_ms(
+                        lambda a_, w_: gated_mm(a_, w_, zero, **kw), sets,
+                        graph=True)
+                    row["ones_mask_ms"] = time_ms(
+                        lambda a_, w_: gated_mm(a_, w_, ones, **kw), sets,
+                        graph=True)
+                    ratio = row["zero_mask_ms"] / row["ones_mask_ms"]
+                    row["zero_over_ones"] = ratio
+                    print(f"[kernels] gated_mm {layer} zero mask "
+                          f"{row['zero_mask_ms']:.4f} ms, all ones "
+                          f"{row['ones_mask_ms']:.4f} ms: {ratio:.3f} "
+                          f"(>= {GATE_ZERO_MASK_MIN})")
+                    if ratio < GATE_ZERO_MASK_MIN:
+                        raise AssertionError(
+                            f"gated_mm with an all-zero mask took {ratio:.3f}"
+                            f" of its all-ones time on {layer}: its copies "
+                            f"went under the mask (GATE became SKIP)")
                 # the yardstick: one library call of the same function,
                 # the dense product with the masked W
                 sets = [(s[0], wm.clone()) for s in sets]
@@ -311,6 +377,16 @@ def phase_kernels(device="cuda", cells=None, timed=True) -> dict:
                 del sets
             rows[name].append(row)
             print(f"[kernels] {name} {layer} {row}")
+        if timed and dtype == torch.float32:
+            t_full = rows["skip_mm"][-1]["full_list_ms"]
+            t_skip = rows["skip_mm"][-1]["ms"]
+            t_gate = rows["gated_mm"][-1]["ms"]
+            arms = {"skip-time": (t_full / t_skip, f"> {WIN_THRESHOLD}"),
+                    "gate-time": (t_full / t_gate, f"<= {GATE_NEUTRAL}"),
+                    "skip-vs-gate": (t_gate / t_skip, f"> {WIN_THRESHOLD}")}
+            rows["skip_mm"][-1]["arms"] = {k: v for k, (v, _) in arms.items()}
+            print(f"[kernels] block arms {layer} (L2 cold): " + ", ".join(
+                f"{k} {v:.3f} ({want})" for k, (v, want) in arms.items()))
     return rows
 
 
@@ -492,6 +568,48 @@ def k4_variants(log: str) -> list:
                              **kernel_info(dtype, D, causal),
                              "spill_bytes": spills.get((kind, D, causal))})
                 print(f"[build] flash_attention variant {rows[-1]}")
+    return rows
+
+
+def block_mm_variants(log: str) -> list:
+    """Every K1/K2 kernel the library holds, by path, type, tile columns
+    and SKIP or GATE: k rows per stage, registers and local memory per
+    thread, dynamic shared memory, resident blocks per SM from the CUDA
+    runtime, spill bytes (stores plus loads) from the compiler's report
+    ``log`` (None where the library was cached and there is no report)."""
+    import re
+    from repro_torch.kernels.block_mm.ops import kernel_info
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?(narrow|wide)_kernelI"
+                      r"(f|13__nv_bfloat16)?Li(\d+)ELb([01])E", line)
+        if m:
+            name = ("narrow" if m.group(1) == "narrow" else "wide128",
+                    m.group(2) != "f", int(m.group(3)), m.group(4) == "1")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills[name] = int(m.group(1)) + int(m.group(2))
+            name = None
+    rows = []
+    for kernel, dtypes in (("narrow", (torch.float32, torch.bfloat16)),
+                           ("wide128", (torch.bfloat16,))):
+        for dtype in dtypes:
+            for tn in (32, 64):
+                for gate in (False, True):
+                    rows.append({
+                        "kernel": kernel,
+                        "dtype": str(dtype).replace("torch.", ""),
+                        "tile_cols": tn, "op": "gate" if gate else "skip",
+                        **kernel_info(kernel, tn, dtype, gate),
+                        "spill_bytes": spills.get(
+                            (kernel, dtype == torch.bfloat16, tn, gate))})
+                    print(f"[build] block_mm variant {rows[-1]}")
+    bad = [r for r in rows if r["local_bytes"] or r["spill_bytes"]]
+    if bad:
+        raise AssertionError(f"K1/K2 variants with local memory or "
+                             f"spills: {bad}")
     return rows
 
 
@@ -952,10 +1070,14 @@ def phase_agreement(device="cuda", configs=("qwen2-0.5b",),
 
 #: (name, what, replaces, source, headline cell)
 KERNELS = (
-    ("skip_mm", "K1 SKIP block-sparse matmul",
+    ("skip_mm", "K1 SKIP block-sparse matmul (narrow path on the CUDA "
+     "cores at M <= 32 and f32, wide bf16 path on the tensor cores "
+     "(mma.sync); each column's run of nonzero blocks split into K-slices "
+     "reduced in a fixed order inside a cluster)",
      "src/repro/kernels/block_mm/kernel.py:95",
      "src/repro_torch/kernels/block_mm/csrc/block_mm.cu", "lm_head"),
-    ("gated_mm", "K2 GATE block-sparse matmul",
+    ("gated_mm", "K2 GATE block-sparse matmul (K1's paths and split over "
+     "every k block; every tile copied, only the products under the mask)",
      "src/repro/kernels/block_mm/kernel.py:49",
      "src/repro_torch/kernels/block_mm/csrc/block_mm.cu", "lm_head"),
     ("nm_spmm", "K3 N:M structured-sparse matmul (2:4, int8 offsets; "
@@ -989,6 +1111,7 @@ def main() -> int:
           f"{torch.version.cuda}")
     t_start = time.perf_counter()
     build = phase_build()
+    build["k1_k2_variants"] = block_mm_variants(ops.LIBRARY.log)
     build["k4_variants"] = k4_variants(fa_ops.LIBRARY.log)
     build["k3_variants"] = nm_variants(nm_ops.LIBRARY.log)
     kernel_rows = phase_kernels()
@@ -1036,6 +1159,7 @@ def main() -> int:
             "library_ms": head["library_ms"], "headline_cell": cell,
             "cells": kernel_rows[name]})
     summary = {"build_s": build["seconds"],
+               "k1_k2_variants": build["k1_k2_variants"],
                "k4_variants": build["k4_variants"],
                "k3_variants": build["k3_variants"], "model": model,
                "fleet": fleet, "serve": serve,

@@ -18,28 +18,117 @@ contiguous, on one device) and return (M, N) f32.  Block sizes follow
 the JAX package's wrappers (``bm = min(bm, M)``, likewise ``bk``,
 ``bn``), but a shape the tiles do not divide raises instead of silently
 dropping the remainder.  The kernels take ``bm`` in {8, 16, 32, 64,
-128}, ``bk`` a multiple of 32 and ``bn`` in {32, 64, 128}.
+128}, ``bk`` a multiple of 32 and ``bn`` in {32, 64, 128}; ``bm`` only
+decides which shapes are legal, and ``bk`` x ``bn`` is the granularity
+of the block list and the mask.
+
+Which kernel runs, its tiles and its K split come from :func:`plan`, a
+pure function of the shape, the type, the SM count and, for K1, the
+longest column run of the block list (``BlockList.max_run``, found once
+by :func:`block_list`): the narrow path (f32 at any M, bf16 at M <= 32)
+on the CUDA cores, 8 rows a block; the wide path (bf16 at M > 32) on the
+tensor cores, 128 rows a block.  Both cut each column's k blocks into
+slices reduced in a fixed order inside one thread-block cluster, so that
+repeated calls give the same bits.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import math
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..nvcc import BUILD_DIR, CudaLibrary
+from ..splitk import H100_SMS, MAX_SPLIT, SplitPlan, sm_count, split_aim
 from .ref import block_mm_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``csrc/block_mm.cu``, built at first use (``kernels.nvcc``)
 LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "block_mm.cu",
-    {"block_mm_skip": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
-     "block_mm_gated": [_P, _P, _P, _P] + [_I] * 7 + [_P]})
+    {"block_mm_skip": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+     "block_mm_gated": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+     "block_mm_info": [_I] * 4 + [_P]})
 _KERNEL_BM = (8, 16, 32, 64, 128)
 _KERNEL_BN = (32, 64, 128)
+#: the kernels of ``csrc/block_mm.cu``, by the number the C interface
+#: takes: the narrow path, and the wide one with 128-row tiles
+KERNELS = {"narrow": 0, "wide128": 1}
+#: k rows per ring stage: every legal bk is a multiple
+STAGE_ROWS = 32
+#: output rows per block of the narrow and the wide path; bf16 above
+#: NARROW_MAX_M rows goes wide
+NARROW_ROWS, WIDE_ROWS = 8, 128
+NARROW_MAX_M = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan(SplitPlan):
+    """What ``csrc/block_mm.cu`` runs for one shape (``splitk.SplitPlan``:
+    path, split, tile, grid), with the most k blocks any K-slice holds
+    (``slice_blocks``, the kernel's ``cap``)."""
+    slice_blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M: int, K: int, N: int, bm: int, bk: int, bn: int, dtype,
+         sms: int = H100_SMS, run: int | None = None) -> Plan:
+    """The kernels' path, tiles and K split for (M, K, N) in blocks of
+    (bm, bk, bn); raises where the kernels cannot go (``bm``, ``bk``,
+    ``bn`` as the wrappers clamp them).
+
+    bf16 with M above 32 takes the wide path (tensor cores, tiles of 128
+    rows; rows past M are read as zeros and not written); everything
+    else, f32 always, the narrow one (CUDA cores, 8 rows).  Tiles are 64
+    columns, 32 when bn is 32: a tile never spans two column blocks.
+    ``run`` is the longest column run of K1's block list
+    (``BlockList.max_run``; a list may repeat a block); K2 walks all K/bk
+    blocks of every column.  K is cut into the power of two of slices
+    that ``splitk.split_aim`` aims at (2 waves of blocks on ``sms`` SMs,
+    at most 16), rounded down to a power of two no larger than the run.
+    The policy is K3's, taken over unchanged: ``study.py`` times K1 and
+    K2 under every split at the chip cells, and its pick is not always
+    the fastest there (PERF.md).  Memoized: a launch repeats no host
+    work."""
+    if (bm not in _KERNEL_BM or bk <= 0 or bk % STAGE_ROWS
+            or bn not in _KERNEL_BN or M <= 0 or K <= 0 or N <= 0
+            or M % bm or K % bk or N % bn):
+        raise ValueError(f"the kernel takes bm in {_KERNEL_BM}, bk a "
+                         f"multiple of {STAGE_ROWS} and bn in {_KERNEL_BN} "
+                         f"dividing (M, K, N); got ({bm}, {bk}, {bn}) for "
+                         f"({M}, {K}, {N})")
+    run = K // bk if run is None else run
+    if run < 1:
+        raise ValueError(f"a column run of {run} k blocks")
+    wide = dtype == torch.bfloat16 and M > NARROW_MAX_M
+    path, rows = ("wide", WIDE_ROWS) if wide else ("narrow", NARROW_ROWS)
+    tile = (rows, 64 if bn % 64 == 0 else 32)
+    split = min(split_aim(math.ceil(M / rows) * (N // tile[1]), sms), run)
+    split = 1 << (split.bit_length() - 1)
+    return Plan(path=path, split=split, tile=tile,
+                grid=(split, math.ceil(M / rows), N // tile[1]),
+                slice_blocks=math.ceil(run / split))
+
+
+def kernel_info(kernel: str, tn: int, dtype, gate: bool) -> dict:
+    """What the library holds for one variant: k rows per ring stage,
+    registers and local memory (spills, stack) per thread, dynamic shared
+    memory per block (the ring), resident blocks per SM and threads per
+    block, from the CUDA runtime (builds the library); raises where it
+    has none."""
+    info = (ctypes.c_int * 6)()
+    err = LIBRARY.lib().block_mm_info(KERNELS[kernel], tn,
+                                      int(dtype == torch.bfloat16),
+                                      int(gate), info)
+    if err:
+        raise RuntimeError(f"block_mm_info failed: CUDA error {err}")
+    return {"stage_rows": info[0], "registers": info[1],
+            "local_bytes": info[2], "smem_bytes": info[3],
+            "blocks_per_sm": info[4], "threads": info[5]}
 
 
 # ----------------------------------------------------------------------
@@ -92,8 +181,9 @@ def column_pointers(kidx, jidx, nbk: int, nbn: int) -> np.ndarray:
 class BlockList:
     """A SKIP block list checked once and copied to its device once: the
     host ``kidx`` / ``jidx`` (int32) of a ``shape`` = (K/bk, N/bn) block
-    grid and, for a CUDA device, ``index``: ``kidx`` followed by the
-    column pointers, as K1 reads them.  Preparing it per call costs
+    grid, its longest column run ``max_run`` (the input of K1's
+    :func:`plan`) and, for a CUDA device, ``index``: ``kidx`` followed by
+    the column pointers, as K1 reads them.  Preparing it per call costs
     host time on the order of the kernel's own (validation, column
     pointers, the copy), so callers that launch K1 repeatedly on one
     list build it once with :func:`block_list`."""
@@ -101,19 +191,21 @@ class BlockList:
     kidx: np.ndarray
     jidx: np.ndarray
     shape: tuple[int, int]
+    max_run: int
     index: torch.Tensor | None = None
 
 
 def block_list(kidx, jidx, shape, device) -> BlockList:
     """Check ``(kidx, jidx)`` against the (K/bk, N/bn) block grid
-    ``shape`` (:func:`column_pointers`) and copy it to ``device``."""
+    ``shape`` (:func:`column_pointers`), find its longest column run and
+    copy it to ``device``."""
     ks, js = _host_ints(kidx), _host_ints(jidx)
     colptr = column_pointers(ks, js, *shape)
     device = torch.device(device)
     index = (None if device.type == "cpu" else
              _to_device(np.concatenate([ks, colptr]), device))
     return BlockList(ks.astype(np.int32), js.astype(np.int32),
-                     tuple(shape), index)
+                     tuple(shape), int(np.diff(colptr).max()), index)
 
 
 # ----------------------------------------------------------------------
@@ -153,6 +245,13 @@ def _to_device(host: np.ndarray, device) -> torch.Tensor:
     (pinned staging, asynchronous on the current stream)."""
     t = torch.from_numpy(np.ascontiguousarray(host, np.int32))
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, copied to fresh storage if it does not start 16-byte
+    aligned (a view at an odd offset): the kernels copy 16 bytes at a
+    time."""
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _on_cpu(a, w) -> bool:
@@ -206,11 +305,15 @@ def skip_mm(a, w_masked, kidx, jidx=None, *, bm=128, bk=128, bn=128):
         raise ValueError(f"the block list of a {blocks.shape} grid does "
                          f"not fit ({K // bk}, {N // bn}) on {a.device}")
     idx = blocks.index
+    p = plan(M, K, N, bm, bk, bn, a.dtype, sm_count(a.device),
+             blocks.max_run)
+    a, w_masked = _aligned(a), _aligned(w_masked)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     err = LIBRARY.lib().block_mm_skip(
         a.data_ptr(), w_masked.data_ptr(), idx.data_ptr(),
-        idx.data_ptr() + 4 * len(blocks.kidx), out.data_ptr(), M, K, N, bm,
-        bk, bn, int(a.dtype == torch.bfloat16), _stream(a.device))
+        idx.data_ptr() + 4 * len(blocks.kidx), out.data_ptr(), M, K, N, bk,
+        bn, int(a.dtype == torch.bfloat16), KERNELS[p.kernel], p.tile[1],
+        p.split, p.slice_blocks, _stream(a.device))
     if err:
         raise RuntimeError(f"skip_mm kernel launch failed: CUDA error {err}")
     skip_mm.launches += 1
@@ -249,7 +352,11 @@ def gated_mm(a, w, block_mask, *, bm=128, bk=128, bn=128):
     M, K, N, bm, bk, bn = _tiles(a, w, bm, bk, bn)
     _check_cuda(a, w, bm, bk, bn)
     if isinstance(block_mask, torch.Tensor) and block_mask.is_cuda:
-        mask = (block_mask != 0).to(torch.int32).contiguous()
+        # the kernel reads int32 and tests != 0 itself: a contiguous int32
+        # mask goes in as it is, with no conversion launched per call
+        mask = block_mask if (block_mask.dtype == torch.int32
+                              and block_mask.is_contiguous()) else \
+            (block_mask != 0).to(torch.int32).contiguous()
     else:
         mask = _to_device((np.asarray(block_mask) != 0).astype(np.int32),
                           a.device)
@@ -257,10 +364,13 @@ def gated_mm(a, w, block_mask, *, bm=128, bk=128, bn=128):
         raise ValueError(f"block_mask {tuple(mask.shape)} on "
                          f"{mask.device} != ({K // bk}, {N // bn}) on "
                          f"{a.device}")
+    p = plan(M, K, N, bm, bk, bn, a.dtype, sm_count(a.device))
+    a, w = _aligned(a), _aligned(w)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     err = LIBRARY.lib().block_mm_gated(
         a.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(), M, K,
-        N, bm, bk, bn, int(a.dtype == torch.bfloat16), _stream(a.device))
+        N, bk, bn, int(a.dtype == torch.bfloat16), KERNELS[p.kernel],
+        p.tile[1], p.split, p.slice_blocks, _stream(a.device))
     if err:
         raise RuntimeError(f"gated_mm kernel launch failed: CUDA error "
                            f"{err}")
@@ -270,6 +380,7 @@ def gated_mm(a, w, block_mask, *, bm=128, bk=128, bn=128):
 
 gated_mm.launches = 0
 
-__all__ = ["BUILD_DIR", "BlockList", "LIBRARY", "block_indices",
-           "block_list", "block_mm_ref", "column_pointers",
-           "gated_mm", "gated_mm_plain", "skip_mm", "skip_mm_plain"]
+__all__ = ["BUILD_DIR", "BlockList", "H100_SMS", "KERNELS", "LIBRARY",
+           "MAX_SPLIT", "Plan", "block_indices", "block_list",
+           "block_mm_ref", "column_pointers", "gated_mm", "gated_mm_plain",
+           "kernel_info", "plan", "skip_mm", "skip_mm_plain", "sm_count"]

@@ -42,6 +42,7 @@ import torch
 
 from ...sparsity.nm import offsets_bits, unpack_offsets
 from ..nvcc import CudaLibrary
+from ..splitk import H100_SMS, MAX_SPLIT, SplitPlan, sm_count, split_aim
 from .ref import nm_spmm_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -57,11 +58,6 @@ _KERNEL_BN = (32, 64, 128)
 #: the kernels of ``csrc/nm_spmm.cu``, by the number the C interface
 #: takes: the narrow path, and the wide one with 64- and 128-row tiles
 KERNELS = {"narrow": 0, "wide64": 1, "wide128": 2}
-#: SMs of an H100 SXM, the plan's default
-H100_SMS = 132
-#: K-slices of one output tile at most: one cluster (16 blocks, past
-#: the portable 8)
-MAX_SPLIT = 16
 #: the narrow path's block: groups of 16 bytes of neighbouring columns,
 #: output rows, and compressed rows per ring stage
 NARROW_GROUPS, NARROW_ROWS, NARROW_STAGE_ROWS = 64, 8, 8
@@ -69,37 +65,17 @@ NARROW_GROUPS, NARROW_ROWS, NARROW_STAGE_ROWS = 64, 8, 8
 #: M = 64; bf16 at M above NARROW_MAX_M goes wide
 WIDE_COLS = 64
 NARROW_MAX_M = 32
-#: blocks the plan wants in the grid, in waves of one block per SM
-WAVES = 2
 #: the kernel reads (and the C interface requires) N in multiples of 16
 COLUMN_GROUP = 16
 
 
 @dataclass(frozen=True)
-class Plan:
-    """What ``csrc/nm_spmm.cu`` runs for one shape: the path, the K-slices
-    of one output tile (``split``, one cluster) of ``slice_groups``
-    m-groups each (the last may hold fewer), the groups per ring stage,
-    the output tile of a block and the grid (split, row tiles, column
-    tiles)."""
-    path: str
-    split: int
+class Plan(SplitPlan):
+    """What ``csrc/nm_spmm.cu`` runs for one shape (``splitk.SplitPlan``:
+    path, split, tile, grid), with the m-groups of a K-slice
+    (``slice_groups``; the last may hold fewer) and of a ring stage."""
     slice_groups: int
     stage_groups: int
-    tile: tuple
-    grid: tuple
-
-    @property
-    def kernel(self) -> str:
-        """The library's kernel: ``narrow``, ``wide64`` or ``wide128``."""
-        return "narrow" if self.path == "narrow" else f"wide{self.tile[0]}"
-
-    @property
-    def blocks(self) -> int:
-        return math.prod(self.grid)
-
-    def waves(self, sms: int = H100_SMS) -> float:
-        return self.blocks / sms
 
 
 def stage_groups(path: str, n: int, m: int) -> int:
@@ -118,10 +94,11 @@ def plan(M: int, K: int, N: int, n: int, m: int, dtype,
     bf16 with M above 32 and K % 8 == 0 takes the wide path (tensor
     cores, tiles of 64 columns by 64 rows, 128 above M = 64);
     everything else, f32 always, the narrow one (CUDA cores, 8 rows by
-    64 x 16 bytes of columns).  Both aim at two waves of blocks
-    on ``sms`` SMs: K/m is cut into a power of two of slices, at most
-    16, of whole stages, which hold whole groups and whole bytes of
-    packed offsets; raises for shapes the kernel does not take."""
+    64 x 16 bytes of columns).  Both aim at two waves of blocks on
+    ``sms`` SMs (``splitk.split_aim``): K/m is cut into a power of two
+    of slices, at most 16, of whole stages, which hold whole groups and
+    whole bytes of packed offsets; raises for shapes the kernel does not
+    take."""
     if (n, m) not in NM_PAIRS or K % m or M <= 0 or K <= 0 or N <= 0:
         raise ValueError(f"no N:M kernel for ({M}, {K}, {N}) at {n}:{m}")
     if N % COLUMN_GROUP:
@@ -137,17 +114,12 @@ def plan(M: int, K: int, N: int, n: int, m: int, dtype,
         tile = (NARROW_ROWS, NARROW_GROUPS * (8 if bf16 else 4))
     tiles = math.ceil(M / tile[0]) * math.ceil(N / tile[1])
     groups, sg = K // m, stage_groups(path, n, m)
-    split = 1 << (math.ceil(WAVES * sms / tiles) - 1).bit_length()
-    split = min(MAX_SPLIT, split, math.ceil(groups / sg))
+    split = min(split_aim(tiles, sms), math.ceil(groups / sg))
     gs = math.ceil(math.ceil(groups / split) / sg) * sg
     split = math.ceil(groups / gs)
-    return Plan(path, split, gs, sg, tile,
-                (split, math.ceil(M / tile[0]), math.ceil(N / tile[1])))
-
-
-def sm_count(device) -> int:
-    """The SMs of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return Plan(path=path, split=split, tile=tile,
+                grid=(split, math.ceil(M / tile[0]), math.ceil(N / tile[1])),
+                slice_groups=gs, stage_groups=sg)
 
 
 def kernel_info(kernel: str, dtype, n: int, m: int, packed: bool) -> dict:
@@ -272,5 +244,6 @@ def nm_spmm(a, w_vals, w_idx, *, n=2, m=4, bm=128, bk=128, bn=128,
 
 nm_spmm.launches = 0
 
-__all__ = ["LIBRARY", "NM_PAIRS", "Plan", "kernel_info", "nm_spmm",
-           "nm_spmm_plain", "nm_spmm_ref", "plan"]
+__all__ = ["H100_SMS", "LIBRARY", "MAX_SPLIT", "NM_PAIRS", "Plan",
+           "kernel_info", "nm_spmm", "nm_spmm_plain", "nm_spmm_ref", "plan",
+           "sm_count"]
