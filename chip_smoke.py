@@ -48,17 +48,34 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    each winner re-validated by the scalar oracle, 512 sampled
    candidates per layer held to the scalar oracle, one program shared
    by the four layers;
-5. fleet: ``fleet_sweep`` over the 10 architectures at full width on
+5. search: Sparseloop's mapspace search on the card (ResNet50 conv2_x,
+   the Table-5 densities, ``scnn_like(three_level_arch())``, spatial
+   n = 8): enumeration at budgets 512 and 5120 and the four strategies
+   (random, hillclimb, annealing, ES) at budget 512, population 32,
+   key 0; ES at 512 over seeds 0-19, as a ratio to enumeration at
+   5120, held to the JAX package's ratios on the same seeds (two-sample
+   KS, 0.01), and every seed's run to enumeration at 512; then one ES per
+   ResNet50 layer at population 1024 for 16 generations through the
+   ``hillclimb`` CLI (logs in ``chiprun_out/search_<layer>.json``) and
+   a traced ES run for the device's idle share; candidates/s, programs,
+   the host's share of wall time, and every winner re-validated by the
+   scalar oracle;
+6. validation: the paper's validation on the port — Fig. 11, 12 and
+   13's errors of the model against the copied refsim (host-side model
+   outputs), Table 5's CPHC of the batched engine on the card over the
+   TEMPLATE3 tilings of the four ResNet50 layers, and its speedup over
+   refsim on the same mappings at cube sides 32 and 64;
+7. fleet: ``fleet_sweep`` over the 10 architectures at full width on
    the card (production mesh, prefill + decode, crossover grid): 178
    entries, 142 unique shapes, programs within ``compile_bound``, 64
    sampled rows held to the scalar oracle, and the advisor's verdicts
    for qwen2-0.5b;
-6. agreement: ``validate_fleet`` with all five arms on qwen2-0.5b at
+8. agreement: ``validate_fleet`` with all five arms on qwen2-0.5b at
    full width, decode batch 8 (the ffn_gate_up and lm_head cells): the
    model's skip-time, gate-time and skip-vs-gate predictions against
    K1/K2, the advisor's N:M traffic verdict against the packed bytes,
    and K3's error against the dense product of the pruned weight;
-7. serve: the LM serving path, ``ServeLoop`` over qwen2-0.5b at full
+9. serve: the LM serving path, ``ServeLoop`` over qwen2-0.5b at full
    width in bf16 (weights from a seeded generator on the card): batch 8,
    prompt 512, 32 generated tokens, 16 requests (a first wave and 8
    refill prefills), greedy; K4 must launch once per layer and prefill;
@@ -66,13 +83,13 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    the device's idle share over 8 traced decode steps of a second,
    one-wave loop, and the device time of a traced warm first-wave
    prefill of a third;
-8. serve check: the card's prefill logits and KV cache against the
+10. serve check: the card's prefill logits and KV cache against the
    port's CPU path on the same weights (full width, 2 layers, f32,
    prompt 128, so K4 runs in f32 on the card);
-9. profile: where one warm engine evaluation of a ResNet50 layer's
+11. profile: where one warm engine evaluation of a ResNet50 layer's
    mapspace goes on the card.
 
-Phases 4-7 are the main path: before each, every kernel's launch
+Phases 4-9 are the main path: before each, every kernel's launch
 counter is set to 0, and it is read right after.  The last lines are
 the ``kernels`` JSON object, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -143,6 +160,30 @@ SERVE_LOGITS_TOL = 1e-4
 #: this ratio its copies went under the mask and GATE turned into SKIP
 GATE_ZERO_MASK_MIN = 0.8
 ORACLE_REL = 1e-6       # batched engine vs the scalar oracle
+#: the search phase: the Table-5 convergence setup (budget, population,
+#: the seeds ES@budget runs over as a ratio to enumeration at 10x
+#: budget), then one production ES per ResNet50 layer (population x
+#: generations) and a traced ES of a few generations
+SEARCH_BUDGET, SEARCH_POP, SEARCH_SEEDS = 512, 32, tuple(range(20))
+#: the JAX package's ES@512 / enumeration@5120 on that cell at seeds
+#: 0-19 (jax 0.9 on the CPU; ``python tests/torch_reference.py 20``
+#: prints them), and the level of the two-sample Kolmogorov-Smirnov
+#: test the card's ratios are held to them by (the CPU tests'
+#: ``tests/test_torch_convergence.py`` bar)
+REFERENCE_ES_RATIOS = (
+    0.9870777099913594, 1.0284147544999478, 1.0495958397871856,
+    1.0878614063914809, 1.0291879670809267, 0.9846934050229664,
+    1.0595477680955212, 1.1160853333396696, 1.0491515581812316,
+    1.0000689616909892, 1.020678515866768, 0.9647871585377441,
+    0.9974316479020175, 1.0924123034758264, 1.0492529058316926,
+    0.9440554490646857, 0.9902196192327241, 1.0491863782735076,
+    1.0519384873648145, 0.9361516714304078,
+)
+SEARCH_KS_ALPHA = 0.01
+ES_POP, ES_GENS, SEARCH_TRACE_GENS = 1024, 16, 4
+#: the validation phase: refsim against the engine at these cube sides,
+#: on this many of each side's Table-5 tilings
+REFSIM_SIDES, REFSIM_SAMPLES = (32, 64), 8
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 L2_BYTES = 50 * 2 ** 20
@@ -790,6 +831,227 @@ def phase_profile(layer=RESNET50_LAYERS[0], device="cuda") -> dict:
     return out
 
 
+def _search_run(fn, device) -> tuple:
+    """(result, wall seconds, compile_stats delta) of one search call,
+    the card drained before and after."""
+    from repro_torch.core import compile_stats
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with compile_stats.track() as st:
+        res = fn()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, st
+
+
+def _revalidated(design, wl, res, what: str) -> float:
+    """The winner's EDP from a fresh scalar oracle, which must confirm
+    the search's mapping as valid with the same EDP to 1e-6."""
+    from repro_torch.core import Sparseloop
+    if res.best is None:
+        raise AssertionError(f"{what}: no valid mapping found")
+    again = Sparseloop(design).evaluate(wl, res.best_nest)
+    if not (again.result.valid and abs(again.edp - res.best.edp)
+            <= ORACLE_REL * abs(again.edp)):
+        raise AssertionError(f"{what}: winner not confirmed by the scalar "
+                             f"oracle ({again.edp} vs {res.best.edp})")
+    return again.edp
+
+
+def phase_search(device="cuda", layer=RESNET50_LAYERS[0],
+                 budget=SEARCH_BUDGET, pop=SEARCH_POP, seeds=SEARCH_SEEDS,
+                 layers=RESNET50_LAYERS, es_pop=ES_POP, es_gens=ES_GENS,
+                 trace_gens=SEARCH_TRACE_GENS, out_dir=None) -> dict:
+    """Sparseloop's mapspace search on ``device``.
+
+    The Table-5 convergence setup on ``layer`` (ResNet50 conv2_x under
+    ``scnn_like(three_level_arch())``, spatial n = 8): enumeration at
+    ``budget`` and 10x ``budget``, and the four strategies at ``budget``
+    with population ``pop`` and key 0.  ES at ``budget`` over
+    ``seeds``, as a ratio to enumeration at 10x ``budget``, must be
+    drawn from the JAX package's distribution of that ratio
+    (``REFERENCE_ES_RATIOS``, two-sample KS at ``SEARCH_KS_ALPHA``; the
+    port's random stream is torch's, so a single key is one draw of a
+    ratio whose median is near 1 in both packages), and every seed's
+    run must beat enumeration at equal budget.  Then one production-scale
+    ES per ResNet50 layer through the ``hillclimb`` CLI (population
+    ``es_pop``, ``es_gens`` generations), and a traced ES run of
+    ``trace_gens`` generations for the device's idle share.  Every
+    winner is re-validated by the scalar oracle."""
+    from repro_torch.core import compile_stats, matmul
+    from repro_torch.core.batched import clear_caches
+    from repro_torch.core.mapper import MapspaceConstraints
+    from repro_torch.core.presets import scnn_like, three_level_arch
+    from repro_torch.search import run_search
+    dev = None if device == "cuda" else device
+    design = scnn_like(three_level_arch())
+    card = card_line() if device != "cpu" else "cpu"
+    name, M, K, N, dA, dB = layer
+    wl = matmul(M, K, N, densities={"A": ("uniform", dA),
+                                    "B": ("uniform", dB)}, name=name)
+    spatial = {1: {"n": 8}}
+    clear_caches()
+    out = {"card": card, "layer": name, "enumeration": {},
+           "strategies": {}}
+    with compile_stats.track() as phase_st:
+        _search_convergence(out, design, wl, dev, device, budget, pop,
+                            seeds, spatial)
+        _search_production(out, design, dev, device, layers, es_pop,
+                           es_gens, card, out_dir)
+    # programs built over the phase: enumeration and every strategy
+    # run, on every layer, lower into one bucket
+    out["programs"] = phase_st.programs
+    out["compiles"] = phase_st.compiles
+    print(f"[search] programs {phase_st.programs} compiles "
+          f"{phase_st.compiles} scalar evals {phase_st.scalar_evals}")
+    if trace_gens:
+        clear_caches()
+        tcons = MapspaceConstraints(budget=es_pop * trace_gens, seed=0,
+                                    spatial=spatial)
+        run_search(design, wl, tcons, strategy="es", key=1,
+                   pop_size=es_pop, device=dev)      # first call untraced
+        out["traced"] = _device_busy(lambda: run_search(
+            design, wl, tcons, strategy="es", key=0, pop_size=es_pop,
+            device=dev), device)
+        out["traced"]["generations"] = trace_gens
+        print(f"[search] traced {json.dumps({'card': card, **out['traced']})}")
+    return out
+
+
+def _search_row(design, workload, res, dt, st, what) -> dict:
+    """One search run's numbers; its winner re-validated."""
+    engine = st.compile_seconds + st.eval_seconds
+    return {"evaluated": res.evaluated, "valid": res.valid,
+            "best_edp": res.best.edp if res.best else None,
+            "revalidated_edp": _revalidated(design, workload, res, what),
+            "seconds": dt, "candidates_per_s": res.evaluated / dt,
+            "programs": st.programs, "compiles": st.compiles,
+            "scalar_evals": st.scalar_evals,
+            "host_share": 1.0 - engine / dt}
+
+
+def _search_convergence(out, design, wl, dev, device, budget, pop, seeds,
+                        spatial) -> None:
+    """The Table-5 convergence cell of ``phase_search``."""
+    from repro_torch.core.mapper import MapspaceConstraints, search
+    from repro_torch.search import run_search
+    for mult in (1, 10):
+        cons = MapspaceConstraints(budget=budget * mult, seed=0,
+                                   spatial=spatial)
+        res, dt, st = _search_run(
+            lambda: search(design, wl, cons, device=dev), device)
+        out["enumeration"][budget * mult] = _search_row(
+            design, wl, res, dt, st, f"enumeration@{budget * mult}")
+    cons = MapspaceConstraints(budget=budget, seed=0, spatial=spatial)
+    for strat in ("random", "hillclimb", "annealing", "es"):
+        res, dt, st = _search_run(
+            lambda: run_search(design, wl, cons, strategy=strat, key=0,
+                               pop_size=pop, device=dev), device)
+        traj = res.log.trajectory("best_edp")
+        if any(a < b for a, b in zip(traj, traj[1:])):
+            raise AssertionError(f"{strat}: trajectory not monotone")
+        if st.programs > 1 or st.scalar_evals:
+            raise AssertionError(f"{strat}: {st.as_dict()}, expected one "
+                                 f"program and no scalar evaluations")
+        out["strategies"][strat] = _search_row(design, wl, res, dt, st,
+                                               f"{strat}@{budget}")
+    enum1 = out["enumeration"][budget]["best_edp"]
+    enum10 = out["enumeration"][budget * 10]["best_edp"]
+    es_edp = [run_search(design, wl, cons, strategy="es", key=k,
+                         pop_size=pop, device=dev).best.edp for k in seeds]
+    from scipy.stats import ks_2samp
+    ratios = [e / enum10 for e in es_edp]
+    ref = REFERENCE_ES_RATIOS[:len(seeds)]
+    out["es_vs_enum10x"] = {
+        "key0": out["strategies"]["es"]["best_edp"] / enum10,
+        "seeds": len(seeds), "median": float(np.median(ratios)),
+        "at_or_below": sum(r <= 1.0 for r in ratios), "ratios": ratios,
+        "reference_median": float(np.median(ref)),
+        "reference_at_or_below": sum(r <= 1.0 for r in ref),
+        "ks_p": float(ks_2samp(ratios, ref).pvalue)}
+    out["es_vs_enum1x"] = [e / enum1 for e in es_edp]
+    print(f"[search] {json.dumps(out)}")
+    print(f"[search] ES@{budget} / enumeration@{budget * 10} at key 0: "
+          f"{out['es_vs_enum10x']['key0']:.4f} (not asserted: a single "
+          f"key is one draw of a ratio whose median is "
+          f"{out['es_vs_enum10x']['median']:.4f} here and "
+          f"{out['es_vs_enum10x']['reference_median']:.4f} in the JAX "
+          f"package over the same {len(seeds)} seeds)")
+    if not len(ref) == len(seeds) or not (
+            out["es_vs_enum10x"]["ks_p"] >= SEARCH_KS_ALPHA):
+        raise AssertionError(f"ES@{budget} over seeds not drawn from the "
+                             f"JAX package's distribution: "
+                             f"{out['es_vs_enum10x']}")
+    if not max(out["es_vs_enum1x"]) <= 1.0:
+        raise AssertionError(f"ES@{budget} above enumeration at equal "
+                             f"budget: {out['es_vs_enum1x']}")
+
+
+def _search_production(out, design, dev, device, layers, es_pop, es_gens,
+                       card, out_dir) -> None:
+    """``phase_search``'s production-scale ES: the hillclimb CLI, one
+    run per ResNet50 layer."""
+    import contextlib
+    import io
+    from repro_torch.core import matmul
+    from repro_torch.launch import hillclimb
+    out["production"] = []
+    logs = Path(out_dir) if out_dir else _root() / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    for lname, M, K, N, dA, dB in layers:
+        argv = ["--design", "scnn", "--mkn", str(M), str(K), str(N),
+                "--densities", str(dA), str(dB), "--strategy", "es",
+                "--budget", str(es_pop * es_gens), "--pop", str(es_pop),
+                "--seed", "0", "--spatial-n", "8",
+                "--out", str(logs / f"search_{lname}.json")]
+        if dev is not None:
+            argv += ["--device", dev]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            res, dt, st = _search_run(lambda: hillclimb.main(argv), device)
+        r = {"layer": lname, "generations": len(res.log.records),
+             **_search_row(design, matmul(M, K, N, densities={
+                 "A": ("uniform", dA), "B": ("uniform", dB)}),
+                 res, dt, st, f"hillclimb es {lname}")}
+        if res.evaluated != es_pop * es_gens or st.scalar_evals:
+            raise AssertionError(f"{lname}: {res.evaluated} evaluated, "
+                                 f"{st.as_dict()}")
+        out["production"].append(r)
+        print(f"[search] {json.dumps({'card': card, **r})}")
+
+
+def phase_validation(device="cuda", layers=RESNET50_LAYERS,
+                     sides=REFSIM_SIDES, samples=REFSIM_SAMPLES) -> dict:
+    """The paper's validation on the port: Fig. 11-13's errors of the
+    analytical model against the copied refsim (host-side model
+    outputs), then Table 5: the batched engine's CPHC over ``TEMPLATE3``
+    tilings of the ResNet50 layers on ``device``, and its speedup over
+    refsim on the same mappings at the cube ``sides``."""
+    from repro_torch import validation
+    dev = None if device == "cuda" else device
+    card = card_line() if device != "cpu" else "cpu"
+    out = {"card": card}
+    t0 = time.perf_counter()
+    figs = {"fig11": validation.fig11_scnn(),
+            "fig12": validation.fig12_eyerissv2(),
+            "fig13": validation.fig13_dstc()}
+    out["figures_s"] = time.perf_counter() - t0
+    out["fig11_max_err_pct"] = figs["fig11"]["max_err_pct"]
+    out["fig11_mean_err_pct"] = figs["fig11"]["mean_err_pct"]
+    out["fig12_uniform_mean_err_pct"] = \
+        figs["fig12"]["uniform_mean_err_pct"]
+    out["fig12_actual_mean_err_pct"] = figs["fig12"]["actual_mean_err_pct"]
+    out["fig13_avg_err_pct"] = figs["fig13"]["avg_err_pct"]
+    for key, v in out.items():
+        if key.endswith("_pct") and not (0.0 <= v < 100.0):
+            raise AssertionError(f"validation: {key} = {v}")
+    out["table5"] = validation.engine_cphc(layers, device=dev)
+    out["refsim"] = validation.refsim_speedup(sides, samples, device=dev)
+    print(f"[validation] {json.dumps(out)}")
+    return out
+
+
 def _oracle_nest(M: int, K: int, N: int):
     """``tpu_mapping(M, K, N)`` as the scalar oracle must see it: with its
     unit-bound loops dropped, which is how the batched engine lowers a
@@ -1134,6 +1396,8 @@ def main() -> int:
         return out
 
     model = main_path("model", phase_model)
+    search = main_path("search", phase_search)
+    validation = main_path("validation", phase_validation)
     fleet = main_path("fleet", phase_fleet)
     rows = main_path("agreement", phase_agreement)
     serve = main_path("serve", phase_serve)
@@ -1162,6 +1426,7 @@ def main() -> int:
                "k1_k2_variants": build["k1_k2_variants"],
                "k4_variants": build["k4_variants"],
                "k3_variants": build["k3_variants"], "model": model,
+               "search": search, "validation": validation,
                "fleet": fleet, "serve": serve,
                "serve_check": serve_check, "profile": profile,
                "main_path": per_phase,

@@ -9,10 +9,12 @@ The paper's three-step decoupled pipeline (Fig. 5):
   3. micro-architecture (microarch.py) — cycles & energy
 
 plus the description language (workload / arch / taxonomy / mapping), the
-mapspace search (mapper.py) and representative design presets
-(presets.py).  The batched engine (batched.py) runs the same model over a
-whole population of mappings as PyTorch tensors, on the CUDA card unless
-``device="cpu"`` is asked for.
+mapspace search (mapper.py), representative design presets (presets.py),
+and the actual-data reference simulator (refsim.py) used for validation.
+The batched engine (batched.py) runs the same model over a whole
+population of mappings as PyTorch tensors, on the CUDA card unless
+``device="cpu"`` is asked for; vmapper.py is its two-level spMspM
+preset.
 """
 from .arch import Architecture, ComputeLevel, StorageLevel
 from .density import (ActualDataModel, BandedModel, DenseModel,

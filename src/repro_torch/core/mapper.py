@@ -63,8 +63,8 @@ class SearchResult:
     best_nest: LoopNest | None
     evaluated: int
     valid: int
-    #: per-generation trajectory (a search-package SearchLog) when the result
-    #: came from a stochastic strategy; None for enumeration
+    #: per-generation trajectory (repro_torch.search.SearchLog) when the
+    #: result came from a stochastic strategy; None for enumeration
     log: object | None = None
     #: the winning Design when the search also proposed design points
     #: ((design, mapping) co-search); None for mapping-only searches
@@ -179,10 +179,16 @@ def search(design: Design, workload: Workload,
            **strategy_kw) -> SearchResult:
     """Find the best valid mapping.  Default objective: EDP.
 
-    ``strategy``: ``None`` enumerates ``cons.budget`` candidates.
-    Stochastic strategies (``"es"``, ``"hillclimb"``, ...) live in the
-    search package, which is not ported yet: any other value raises
-    ``NotImplementedError``.
+    ``strategy``: ``None`` (default) enumerates ``cons.budget``
+    candidates.  A strategy name (``"es"``, ``"hillclimb"``,
+    ``"annealing"``, ``"random"``) or a ``repro_torch.search`` Strategy
+    instance instead runs stochastic search over the same mapspace slice
+    at the same evaluation budget (``repro_torch.search.run_search``);
+    extra keyword arguments (``key=``, ``generations=``, ``pop_size=``,
+    ``design_space=`` — a ``repro_torch.search.DesignSpace`` turns the
+    run into (design, mapping) co-search, winner in
+    ``result.best_design``, ...) pass through, and the returned result
+    carries its trajectory in ``result.log``.
 
     ``device``: where the batched engine runs — the CUDA card when None,
     the CPU only for ``device="cpu"``.  The scalar loop and the winner's
@@ -201,9 +207,19 @@ def search(design: Design, workload: Workload,
         raise ValueError(f"use_batched must be False, True or 'auto', "
                          f"got {use_batched!r}")
     if strategy is not None:
-        raise NotImplementedError(
-            f"strategy={strategy!r}: stochastic search needs the search "
-            f"package, which is not ported yet (ROADMAP Queue 1 item 7)")
+        if objective is not None and not isinstance(objective, str):
+            raise ValueError(
+                "strategy search optimizes a metric name ('edp', "
+                "'cycles' or 'energy_pj'); callable objectives need the "
+                "enumerating path (strategy=None)")
+        from ..search.runner import run_search
+        if use_batched != "auto" and "batch_threshold" not in strategy_kw:
+            # honour the dispatch override: True = batch every group,
+            # False = force the scalar loop
+            strategy_kw["batch_threshold"] = 0 if use_batched else 10 ** 18
+        return run_search(design, workload, cons=cons, strategy=strategy,
+                          metric=objective or "edp", device=device,
+                          **strategy_kw)
     if strategy_kw:
         raise TypeError(f"unexpected arguments {sorted(strategy_kw)} "
                         f"(only valid with strategy=)")

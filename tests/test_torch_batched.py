@@ -414,7 +414,21 @@ def test_no_cuda_without_device_raises(monkeypatch):
 
 
 def test_stochastic_strategies_wait_for_the_search_port():
-    _, design = _design("dense_design")
-    wl = from_reference(ref_matmul(M, K, N, densities=DENS))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        search(design, wl, strategy="es", device=CPU)
+    """The search port has landed: ``strategy="es"`` dispatches to
+    ``repro_torch.search.run_search`` and returns a winner the scalar
+    oracle re-validates."""
+    ref_design, design = _design("dense_design")
+    ref_wl = ref_matmul(M, K, N, densities=DENS)
+    wl = from_reference(ref_wl)
+    cons = MapspaceConstraints(budget=64, seed=0, spatial={1: {"n": 4}})
+    res = search(design, wl, cons, strategy="es", key=0, device=CPU)
+    assert res.log is not None and res.log.strategy == "es"
+    assert 0 < res.evaluated <= cons.budget
+    assert res.best is not None and res.best.result.valid
+    oracle = RefSparseloop(ref_design).evaluate(
+        ref_wl, RefLoopNest(loops=tuple(
+            RefLoop(lp.rank, lp.bound, lp.level, lp.spatial)
+            for lp in res.best_nest.loops),
+            num_levels=res.best_nest.num_levels))
+    assert oracle.result.valid
+    assert res.best.edp == pytest.approx(oracle.edp, rel=1e-9)

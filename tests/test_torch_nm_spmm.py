@@ -142,8 +142,9 @@ def test_idx_shape_is_checked():
 @pytest.mark.parametrize("n,m", PAIRS)
 @pytest.mark.parametrize("bm,bn", [(8, 64), (64, 32), (128, 128)])
 def test_cuda_kernel_matches_plain_version(bm, bn, n, m, dtype, packed):
-    """On the card: K3 against its plain version (f32 1e-5 of the
-    largest magnitude; bf16 0.25), each launch counted, with a K whose
+    """On the card: K3 against its plain version, held to 1e-5 of the
+    largest magnitude in f32 and bf16 alike (both sides multiply the same
+    inputs in f32 and sum in f32), each launch counted, with a K whose
     last step holds fewer groups than the others."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the card)")
@@ -160,7 +161,9 @@ def test_cuda_kernel_matches_plain_version(bm, bn, n, m, dtype, packed):
     torch.cuda.synchronize()
     assert nm_spmm.launches == before + 1
     err = float((got - want).abs().max() / want.abs().max())
-    assert err <= (1e-5 if dtype == "float32" else 0.25)
+    print(f"[K3 card] {dtype} {n}:{m} bm={bm} bn={bn} packed={packed} "
+          f"rel err {err:.3e}")
+    assert err <= CARD_TOL
     assert ops.LIBRARY.src.name == "nm_spmm.cu"
 
 
