@@ -60,22 +60,43 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    a traced ES run for the device's idle share; candidates/s, programs,
    the host's share of wall time, and every winner re-validated by the
    scalar oracle;
-6. validation: the paper's validation on the port — Fig. 11, 12 and
+6. fused: the device-resident fused search (``search/fused.py``: one
+   captured CUDA graph per generation, replayed for a chunk) against
+   the host loop on ``bench_fused``'s cell (conv2_x, population 32, 48
+   generations, chunks of 16, key 0): warm generations/s of both and
+   their ratio beside the JAX package's bar (3.0); the fused path must
+   be faster, capture one graph, run no scalar evaluation, repeat its
+   log on a same-key rerun with no new capture, and its winner is
+   re-validated; then fused ES at population 1024 x 16 generations per
+   ResNet50 layer beside phase 5's host ES, and the device's idle share
+   over one traced warm chunk;
+7. hybrid: hybrid ES+SGD against pure fused ES on ``bench_codesign``'s
+   provisioning space (12 generations, SGD step 0.5) over seeds 0-19,
+   the ratios held to the JAX package's (two-sample KS, 0.01), winners
+   re-validated under their own designs; the architecture gradient
+   (``evaluate_with_arch_grad``, raw and surrogate) at population 1024
+   on the card against the port on the CPU;
+8. service: 4 ES islands through one ``EvaluationService`` against the
+   same 4 searches run alone on conv2_x: one program and one shape in
+   total, winners re-validated, the candidates/s ratio; then fused
+   island mode (chunks on the service's thread), and fused islands
+   without migration held to direct fused runs of the same seeds;
+9. validation: the paper's validation on the port — Fig. 11, 12 and
    13's errors of the model against the copied refsim (host-side model
    outputs), Table 5's CPHC of the batched engine on the card over the
    TEMPLATE3 tilings of the four ResNet50 layers, and its speedup over
    refsim on the same mappings at cube sides 32 and 64;
-7. fleet: ``fleet_sweep`` over the 10 architectures at full width on
+10. fleet: ``fleet_sweep`` over the 10 architectures at full width on
    the card (production mesh, prefill + decode, crossover grid): 178
    entries, 142 unique shapes, programs within ``compile_bound``, 64
    sampled rows held to the scalar oracle, and the advisor's verdicts
    for qwen2-0.5b;
-8. agreement: ``validate_fleet`` with all five arms on qwen2-0.5b at
+11. agreement: ``validate_fleet`` with all five arms on qwen2-0.5b at
    full width, decode batch 8 (the ffn_gate_up and lm_head cells): the
    model's skip-time, gate-time and skip-vs-gate predictions against
    K1/K2, the advisor's N:M traffic verdict against the packed bytes,
    and K3's error against the dense product of the pruned weight;
-9. serve: the LM serving path, ``ServeLoop`` over qwen2-0.5b at full
+12. serve: the LM serving path, ``ServeLoop`` over qwen2-0.5b at full
    width in bf16 (weights from a seeded generator on the card): batch 8,
    prompt 512, 32 generated tokens, 16 requests (a first wave and 8
    refill prefills), greedy; K4 must launch once per layer and prefill;
@@ -83,13 +104,13 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    the device's idle share over 8 traced decode steps of a second,
    one-wave loop, and the device time of a traced warm first-wave
    prefill of a third;
-10. serve check: the card's prefill logits and KV cache against the
+13. serve check: the card's prefill logits and KV cache against the
    port's CPU path on the same weights (full width, 2 layers, f32,
    prompt 128, so K4 runs in f32 on the card);
-11. profile: where one warm engine evaluation of a ResNet50 layer's
+14. profile: where one warm engine evaluation of a ResNet50 layer's
    mapspace goes on the card.
 
-Phases 4-9 are the main path: before each, every kernel's launch
+Phases 4-12 are the main path: before each, every kernel's launch
 counter is set to 0, and it is read right after.  The last lines are
 the ``kernels`` JSON object, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -181,6 +202,37 @@ REFERENCE_ES_RATIOS = (
 )
 SEARCH_KS_ALPHA = 0.01
 ES_POP, ES_GENS, SEARCH_TRACE_GENS = 1024, 16, 4
+#: the fused phase: ``bench_fused``'s cell (population, generations,
+#: generations per chunk) and the JAX package's own bar on the fused
+#: path's warm generations/s over the host loop's (printed beside the
+#: measured ratio; the run asserts only that the fused path is faster)
+FUSED_POP, FUSED_GENS, FUSED_CHUNK = 32, 48, 16
+#: generations per chunk of the fused production cell (ES_POP x
+#: ES_GENS): four chunks, so three of them are warm
+ES_FUSED_CHUNK = 4
+FUSED_SPEEDUP_BOUND = 3.0
+#: the hybrid phase: generations and SGD step of ``bench_fused``'s
+#: hybrid cell, and the JAX package's hybrid ES+SGD / pure ES ratios on
+#: it at seeds 0-19 (jax 0.9 on the CPU; ``PYTHONPATH=src python
+#: tests/torch_reference.py 20 hybrid`` prints them; checked against the
+#: reference by ``tests/test_torch_fused.py``)
+HYBRID_GENS, HYBRID_LR = 12, 0.5
+REFERENCE_HYBRID_RATIOS = (
+    1.0278883648380024, 0.9883640005842013, 0.9997151984700456,
+    0.9855406139260938, 0.954518676424974, 0.8265692672130692,
+    1.0256820242184628, 0.9774737230852539, 1.0106921331006629,
+    0.9872976497995076, 1.0298707190620757, 0.9712236000548153,
+    0.9863601061566133, 0.8820022251399748, 1.0489624248527323,
+    1.0787431881288023, 1.0472783909996866, 0.9500610041489518,
+    0.9503282279204809, 0.9716804364434181,
+)
+#: the arch gradient on the card against the port on the CPU: the
+#: batched parity bound.  Exactness is out of reach: float64 lgamma and
+#: exp differ by an ulp between the card and the CPU, and the forward
+#: EDP moves with them (both are printed)
+HYBRID_GRAD_REL = ORACLE_REL
+#: the service phase: islands, generations, migration interval
+ISLANDS, ISLAND_GENS, ISLAND_MIGRATE = 4, 16, 4
 #: the validation phase: refsim against the engine at these cube sides,
 #: on this many of each side's Table-5 tilings
 REFSIM_SIDES, REFSIM_SAMPLES = (32, 64), 8
@@ -1021,6 +1073,320 @@ def _search_production(out, design, dev, device, layers, es_pop, es_gens,
         print(f"[search] {json.dumps({'card': card, **r})}")
 
 
+def _layer_cell(layer=RESNET50_LAYERS[0]):
+    """(design, workload) of a ResNet50 layer's Table-5 cell (conv2_x
+    by default)."""
+    from repro_torch.core import matmul
+    from repro_torch.core.presets import scnn_like, three_level_arch
+    name, M, K, N, dA, dB = layer
+    return scnn_like(three_level_arch()), matmul(
+        M, K, N, densities={"A": ("uniform", dA), "B": ("uniform", dB)},
+        name=name)
+
+
+def _warm_gens_per_s(res) -> float:
+    """Warm generations/s of a search: a host run drops its first
+    generation record, a fused run its first chunk (each holds the
+    first call: allocations, and on the card the graph capture)."""
+    if res.log.timing.get("fused"):
+        warm = res.log.timing["chunks"][1:]
+        return sum(c["generations"] for c in warm) / sum(
+            c["wall_s"] for c in warm)
+    warm = res.log.records[1:]
+    return len(warm) / sum(r.wall_time_s for r in warm)
+
+
+def phase_fused(device="cuda", pop=FUSED_POP, gens=FUSED_GENS,
+                chunk=FUSED_CHUNK, layers=RESNET50_LAYERS,
+                prod_pop=ES_POP, prod_gens=ES_GENS,
+                prod_chunk=ES_FUSED_CHUNK,
+                host_production=None) -> dict:
+    """The device-resident fused search on ``device`` against the host
+    loop, on ``bench_fused``'s cell (ResNet50 conv2_x,
+    ``scnn_like(three_level_arch())``, spatial n = 8, free
+    permutations, key 0): ES at ``pop`` for ``gens`` generations, host
+    loop and fused path (chunks of ``chunk``).  The fused path must beat
+    the host loop's warm generations/s (printed beside the JAX
+    package's own bar, ``FUSED_SPEEDUP_BOUND``), capture one graph for
+    the run and run no scalar evaluation; a same-key rerun must give
+    the same log and capture nothing; the winner is re-validated by the
+    scalar oracle.  Then fused ES at ``prod_pop`` x ``prod_gens`` on
+    each ResNet50 layer (phase 5's production cell; its host numbers
+    ``host_production`` printed beside), and the device's idle share
+    over one traced warm chunk."""
+    from repro_torch.core import Sparseloop, compile_stats
+    from repro_torch.core.batched import clear_caches
+    from repro_torch.core.mapper import MapspaceConstraints
+    from repro_torch.search import (MapspaceEncoding, SearchConfig,
+                                    get_fused_program, make_strategy,
+                                    run_search)
+    from repro_torch.search.fused import graph_captures
+    from repro_torch.search.runner import ARCHIVE_SIZE
+    dev = None if device == "cuda" else device
+    cuda = device != "cpu"
+    card = card_line() if cuda else "cpu"
+    design, wl = _layer_cell()
+    cons = MapspaceConstraints(budget=pop * gens, seed=0,
+                               spatial={1: {"n": 8}})
+    cfg = SearchConfig(fused_chunk=chunk)
+    kw = dict(strategy="es", key=0, pop_size=pop, generations=gens,
+              device=dev)
+    clear_caches()
+    host, dt_host, _ = _search_run(
+        lambda: run_search(design, wl, cons, fused=False, **kw), device)
+    clear_caches()
+    fused, dt_fused, st = _search_run(
+        lambda: run_search(design, wl, cons, fused=True, config=cfg,
+                           **kw), device)
+    captures = graph_captures()
+    again, _, st2 = _search_run(
+        lambda: run_search(design, wl, cons, fused=True, config=cfg,
+                           **kw), device)
+    out = {"card": card, "pop": pop, "generations": gens, "chunk": chunk,
+           "host_warm_gens_per_s": _warm_gens_per_s(host),
+           "fused_warm_gens_per_s": _warm_gens_per_s(fused),
+           "host_wall_s": dt_host, "fused_wall_s": dt_fused,
+           "host_best_edp": _revalidated(design, wl, host, "host es"),
+           "fused_best_edp": _revalidated(design, wl, fused, "fused es"),
+           "graph_captures": captures,
+           "rerun_graph_captures": graph_captures() - captures,
+           "fused_compiles": st.compiles_by_kind.get("fused", 0),
+           "rerun_fused_compiles": st2.compiles_by_kind.get("fused", 0),
+           "scalar_evals": st.scalar_evals,
+           "rerun_identical": again.log.to_json(timing=False)
+           == fused.log.to_json(timing=False),
+           "chunks": fused.log.timing["chunks"]}
+    out["speedup"] = (out["fused_warm_gens_per_s"]
+                      / out["host_warm_gens_per_s"])
+    print(f"[fused] {json.dumps(out)}")
+    print(f"[fused] warm generations/s: host {out['host_warm_gens_per_s']:.1f}"
+          f", fused {out['fused_warm_gens_per_s']:.1f}: "
+          f"{out['speedup']:.2f}x (the JAX package's bar: >= "
+          f"{FUSED_SPEEDUP_BOUND}x)")
+    if cuda and not out["speedup"] > 1.0:
+        raise AssertionError(f"fused path not faster than the host loop: "
+                             f"{out}")
+    if (out["graph_captures"] != (1 if cuda else 0)
+            or out["rerun_graph_captures"] or out["fused_compiles"] != 1
+            or out["rerun_fused_compiles"] or out["scalar_evals"]
+            or not out["rerun_identical"]
+            or fused.log.evaluations != pop * gens):
+        raise AssertionError(f"fused contracts broken: {out}")
+
+    # production: fused ES per ResNet50 layer, host numbers beside
+    out["production"] = []
+    host_by_layer = {r["layer"]: r for r in host_production or ()}
+    pcfg = SearchConfig(fused_chunk=prod_chunk)
+    for lname, M, K, N, dA, dB in layers:
+        design, lwl = _layer_cell((lname, M, K, N, dA, dB))
+        pcons = MapspaceConstraints(budget=prod_pop * prod_gens, seed=0,
+                                    spatial={1: {"n": 8}})
+        res, dt, lst = _search_run(lambda: run_search(
+            design, lwl, pcons, strategy="es", key=0, pop_size=prod_pop,
+            fused=True, config=pcfg, device=dev), device)
+        hrow = host_by_layer.get(lname, {})
+        row = {"layer": lname, "evaluated": res.evaluated, "seconds": dt,
+               "candidates_per_s": res.evaluated / dt,
+               "warm_candidates_per_s": _warm_gens_per_s(res) * prod_pop,
+               "host_candidates_per_s": hrow.get("candidates_per_s"),
+               "best_edp": _revalidated(design, lwl, res,
+                                        f"fused es {lname}"),
+               "host_best_edp": hrow.get("best_edp"),
+               "scalar_evals": lst.scalar_evals}
+        if res.evaluated != prod_pop * prod_gens or lst.scalar_evals:
+            raise AssertionError(f"fused {lname}: {row}")
+        out["production"].append(row)
+        print(f"[fused] {json.dumps({'card': card, **row})}")
+    # one traced warm chunk of the last layer's program
+    enc = MapspaceEncoding(lwl, 3, pcons)
+    bm = Sparseloop(design, device=device).bucketed_model(lwl, enc.bucket)
+    fp = get_fused_program(bm, enc, make_strategy("es", pop_size=prod_pop),
+                           archive_k=ARCHIVE_SIZE)
+    carry, _ = fp.invoke_chunk(fp.init_carry(1), prod_chunk)
+    out["traced"] = _device_busy(
+        lambda: fp.invoke_chunk(carry, prod_chunk), device)
+    out["traced"].update(generations=prod_chunk, pop=prod_pop,
+                         layer=layers[-1][0])
+    print(f"[fused] traced {json.dumps({'card': card, **out['traced']})}")
+    return out
+
+
+def _hybrid_space():
+    from repro_torch.search import DesignSpace
+    return DesignSpace(
+        capacity_steps={"GLB": (6 * 1024, 48 * 1024, 96 * 1024,
+                                192 * 1024),
+                        "SPad": (64, 256, 512)},
+        bandwidth_steps={"DRAM": (2.0, 8.0, 32.0)})
+
+
+def phase_hybrid(device="cuda", seeds=SEARCH_SEEDS, gens=HYBRID_GENS,
+                 pop=FUSED_POP, lr=HYBRID_LR, grad_pop=ES_POP) -> dict:
+    """Hybrid ES+SGD on ``device``: ``bench_codesign``'s provisioning
+    space (GLB and SPad capacities, DRAM bandwidth) co-searched with
+    conv2_x's mappings, fused ES at ``pop`` for ``gens`` generations,
+    with the SGD step (``lr``) and without, over ``seeds``.  The ratios
+    hybrid / pure must be drawn from the JAX package's distribution
+    (``REFERENCE_HYBRID_RATIOS``, two-sample KS at
+    ``SEARCH_KS_ALPHA``), every winner re-validated under its own
+    design.  Then ``evaluate_with_arch_grad`` on ``grad_pop`` random
+    genomes of the space, raw and surrogate, on ``device`` against the
+    port on the CPU (``HYBRID_GRAD_REL``)."""
+    from scipy.stats import ks_2samp
+
+    from repro_torch.core import Sparseloop
+    from repro_torch.core.mapper import MapspaceConstraints
+    from repro_torch.search import CoSearchEncoding, SearchConfig, run_search
+    dev = None if device == "cuda" else device
+    card = card_line() if device != "cpu" else "cpu"
+    design, wl = _layer_cell()
+    space = _hybrid_space()
+    cons = MapspaceConstraints(budget=pop * gens, seed=0,
+                               spatial={1: {"n": 8}})
+    kw = dict(strategy="es", pop_size=pop, generations=gens,
+              design_space=space, fused=True,
+              config=SearchConfig(fused_chunk=gens), device=dev)
+    out = {"card": card, "pure": [], "hybrid": [], "seconds": {}}
+    for name, rate in (("pure", 0.0), ("hybrid", lr)):
+        t0 = time.perf_counter()
+        for k in seeds:
+            res = run_search(design, wl, cons, key=k, sgd_lr=rate, **kw)
+            again = Sparseloop(res.best_design).evaluate(wl, res.best_nest)
+            if not (again.result.valid and abs(again.edp - res.best.edp)
+                    <= ORACLE_REL * abs(again.edp)):
+                raise AssertionError(f"{name} seed {k}: winner not "
+                                     f"confirmed by the scalar oracle")
+            out[name].append(res.best.edp)
+        out["seconds"][name] = time.perf_counter() - t0
+    ratios = [h / p for h, p in zip(out["hybrid"], out["pure"])]
+    ref = REFERENCE_HYBRID_RATIOS[:len(seeds)]
+    out.update(ratios=ratios, median=float(np.median(ratios)),
+               at_or_below=sum(r <= 1.0 for r in ratios),
+               reference_median=float(np.median(ref)),
+               reference_at_or_below=sum(r <= 1.0 for r in ref),
+               ks_p=float(ks_2samp(ratios, ref).pvalue))
+    # the architecture gradient at population scale, card vs CPU
+    enc = CoSearchEncoding(wl, 3, cons, space, design)
+    g = enc.repair(np.random.default_rng(0).integers(
+        0, 1 << 30, (grad_pop, enc.genome_size)))
+    bucket, bounds, ids = enc.decode_bucketed(g)
+    ap = enc.arch_params_of(g)
+    worst = {}
+    fwd = [Sparseloop(design, device=d).bucketed_model(wl, bucket).evaluate(
+        bounds, ids, arch_params=ap)["edp"] for d in (device, "cpu")]
+    worst["forward.edp"] = float(np.max(np.abs(fwd[0] - fwd[1])
+                                        / np.abs(fwd[1])))
+    for surrogate in (False, True):
+        got, want = (Sparseloop(design, device=d).bucketed_model(
+            wl, bucket).evaluate_with_arch_grad(
+                bounds, ids, arch_params=ap, surrogate=surrogate)
+            for d in (device, "cpu"))
+        for key in ("loss", "grad_storage", "grad_compute"):
+            a, b = got[key], want[key]
+            fin = np.isfinite(b)
+            if not (np.array_equal(fin, np.isfinite(a))):
+                raise AssertionError(f"arch grad {key}: finiteness differs")
+            rel = np.abs(a[fin] - b[fin]) / np.maximum(
+                np.abs(b[fin]), 1e-300)
+            tiny = np.abs(b[fin]) <= 1e-12 * np.abs(b[fin]).max()
+            worst[f"{'surrogate' if surrogate else 'raw'}.{key}"] = float(
+                np.where(tiny, 0.0, rel).max(initial=0.0))
+    out["arch_grad_max_rel"] = worst
+    out["grad_pop"] = grad_pop
+    print(f"[hybrid] {json.dumps(out)}")
+    if not (len(ref) == len(seeds) and out["ks_p"] >= SEARCH_KS_ALPHA):
+        raise AssertionError(f"hybrid / pure over seeds not drawn from the "
+                             f"JAX package's distribution: {out}")
+    if max(worst.values()) > HYBRID_GRAD_REL:
+        raise AssertionError(f"arch gradient on {device} differs from the "
+                             f"CPU's: {worst}")
+    return out
+
+
+def phase_service(device="cuda", n_islands=ISLANDS, pop=FUSED_POP,
+                  gens=ISLAND_GENS, migrate_every=ISLAND_MIGRATE) -> dict:
+    """The DSE service on ``device``: ``n_islands`` ES islands (population
+    ``pop``, ``gens`` generations, ring migration every
+    ``migrate_every``) through one service against the same searches run
+    one after another on their own, on the conv2_x cell.  The islands
+    must run one program and one first call in total (one bucket, one
+    shape) and every island's winner is re-validated by the scalar
+    oracle; the candidates/s ratio is printed.  Then fused island mode
+    with migration (every chunk through the service's evaluator
+    thread), and fused islands without migration held to fused
+    ``run_search`` on the same seeds on this thread: the graph replayed
+    from the service's thread must give the same trajectories."""
+    from repro_torch.core import compile_stats
+    from repro_torch.core.batched import clear_caches
+    from repro_torch.core.mapper import MapspaceConstraints
+    from repro_torch.dse import run_islands
+    from repro_torch.dse.islands import island_seeds
+    from repro_torch.search import SearchConfig, run_search
+    dev = None if device == "cuda" else device
+    card = card_line() if device != "cpu" else "cpu"
+    design, wl = _layer_cell()
+    cons = MapspaceConstraints(budget=pop * gens, seed=0,
+                               spatial={1: {"n": 8}})
+    seeds = island_seeds(0, n_islands)
+    clear_caches()
+    alone, dt_alone, _ = _search_run(lambda: [run_search(
+        design, wl, cons, strategy="es", key=s, pop_size=pop,
+        generations=gens, device=dev) for s in seeds], device)
+    clear_caches()
+    with compile_stats.track() as st:
+        isl, dt_isl, _ = _search_run(lambda: run_islands(
+            design, wl, cons, n_islands=n_islands, key=0, pop_size=pop,
+            generations=gens, migrate_every=migrate_every, device=dev),
+            device)
+    for i, r in enumerate(isl.per_island):
+        _revalidated(design, wl, r, f"island {i}")
+    evals = n_islands * pop * gens
+    out = {"card": card, "islands": n_islands, "pop": pop,
+           "generations": gens, "programs": st.programs,
+           "compiles": st.compiles, "scalar_evals": st.scalar_evals,
+           "service": isl.service_stats,
+           "islands_candidates_per_s": evals / dt_isl,
+           "alone_candidates_per_s": evals / dt_alone,
+           "islands_best_edp": isl.best.best.edp,
+           "alone_best_edp": min(r.best.edp for r in alone)}
+    out["candidates_per_s_ratio"] = (out["islands_candidates_per_s"]
+                                     / out["alone_candidates_per_s"])
+    if (st.programs > 1 or st.compiles > 1 or st.scalar_evals
+            or isl.evaluations != evals):
+        raise AssertionError(f"islands: {out}")
+    fused, dt_fused, _ = _search_run(lambda: run_islands(
+        design, wl, cons, n_islands=n_islands, key=0, pop_size=pop,
+        generations=gens, migrate_every=migrate_every, fused=True,
+        device=dev), device)
+    for i, r in enumerate(fused.per_island):
+        _revalidated(design, wl, r, f"fused island {i}")
+    out["fused"] = {"service": fused.service_stats, "seconds": dt_fused,
+                    "candidates_per_s": evals / dt_fused,
+                    "best_edp": fused.best.best.edp}
+    chunks = n_islands * -(-gens // migrate_every)
+    if (fused.service_stats["fused_chunks"] != chunks
+            or fused.service_stats["batches"]
+            or fused.evaluations != evals):
+        raise AssertionError(f"fused islands: {out['fused']}")
+    free = run_islands(design, wl, cons, n_islands=n_islands, key=0,
+                       pop_size=pop, generations=gens, migrate_every=0,
+                       fused=True, config=SearchConfig(fused_chunk=gens),
+                       device=dev)
+    direct = [run_search(design, wl, cons, strategy="es", key=s,
+                         pop_size=pop, generations=gens, fused=True,
+                         config=SearchConfig(fused_chunk=gens), device=dev)
+              for s in seeds]
+    same = [a.to_dict(timing=False)["records"]
+            == b.log.to_dict(timing=False)["records"]
+            for a, b in zip(free.logs, direct)]
+    out["fused"]["threads_same_as_direct"] = same
+    print(f"[service] {json.dumps(out)}")
+    if not all(same):
+        raise AssertionError(f"fused islands replayed on the service's "
+                             f"thread differ from direct runs: {same}")
+    return out
+
+
 def phase_validation(device="cuda", layers=RESNET50_LAYERS,
                      sides=REFSIM_SIDES, samples=REFSIM_SAMPLES) -> dict:
     """The paper's validation on the port: Fig. 11-13's errors of the
@@ -1065,7 +1431,10 @@ def _oracle_nest(M: int, K: int, N: int):
 
 def _device_busy(fn, device) -> dict:
     """Wall seconds, device-busy seconds and device events of one call
-    of ``fn``, from a ``torch.profiler`` trace."""
+    of ``fn``, from a ``torch.profiler`` trace, and the device window
+    (first device event's start to the last one's end): the idle time
+    inside it is gaps between device operations, the rest is the host
+    before and after them."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if device != "cpu":
@@ -1079,8 +1448,10 @@ def _device_busy(fn, device) -> dict:
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+    window = (max(e.time_range.end for e in dev)
+              - min(e.time_range.start for e in dev)) / 1e6 if dev else 0.0
     return {"traced_s": traced, "device_busy_s": busy,
-            "device_events": len(dev),
+            "device_window_s": window, "device_events": len(dev),
             "idle_share": 1.0 - busy / traced if traced else None}
 
 
@@ -1397,6 +1768,10 @@ def main() -> int:
 
     model = main_path("model", phase_model)
     search = main_path("search", phase_search)
+    fused = main_path("fused", lambda: phase_fused(
+        host_production=search["production"]))
+    hybrid = main_path("hybrid", phase_hybrid)
+    service = main_path("service", phase_service)
     validation = main_path("validation", phase_validation)
     fleet = main_path("fleet", phase_fleet)
     rows = main_path("agreement", phase_agreement)
@@ -1426,7 +1801,8 @@ def main() -> int:
                "k1_k2_variants": build["k1_k2_variants"],
                "k4_variants": build["k4_variants"],
                "k3_variants": build["k3_variants"], "model": model,
-               "search": search, "validation": validation,
+               "search": search, "fused": fused, "hybrid": hybrid,
+               "service": service, "validation": validation,
                "fleet": fleet, "serve": serve,
                "serve_check": serve_check, "profile": profile,
                "main_path": per_phase,

@@ -422,20 +422,33 @@ def _prod(xs):
 
 
 def _max(a, b):
+    """``max`` of tensors and Python floats.  On the gradient path a tie
+    splits the gradient in half between the two sides, as
+    ``torch.maximum`` and the JAX package's ``jnp.maximum`` do (a Python
+    float side takes its half with it); off it, a float side is one
+    ``torch.clamp``, which would pass the whole gradient at a tie."""
     if isinstance(a, torch.Tensor):
-        return torch.maximum(a, b) if isinstance(b, torch.Tensor) \
-            else torch.clamp(a, min=b)
+        if not isinstance(b, torch.Tensor):
+            if not a.requires_grad:
+                return torch.clamp(a, min=b)
+            b = torch.full_like(a, b)
+        return torch.maximum(a, b)
     if isinstance(b, torch.Tensor):
-        return torch.clamp(b, min=a)
+        return _max(b, a)
     return max(a, b)
 
 
 def _min(a, b):
+    """``min`` of tensors and Python floats, with :func:`_max`'s tie
+    rule."""
     if isinstance(a, torch.Tensor):
-        return torch.minimum(a, b) if isinstance(b, torch.Tensor) \
-            else torch.clamp(a, max=b)
+        if not isinstance(b, torch.Tensor):
+            if not a.requires_grad:
+                return torch.clamp(a, max=b)
+            b = torch.full_like(a, b)
+        return torch.minimum(a, b)
     if isinstance(b, torch.Tensor):
-        return torch.clamp(b, max=a)
+        return _min(b, a)
     return min(a, b)
 
 
@@ -711,8 +724,13 @@ class _TracedNestModel:
                       shape=shape_key):
             res = fn(batch_args, wp)
             cols = [res[k].to(F64) for k in _METRICS]
-            packed = torch.cat([torch.stack(cols, 1), res["occupancy"]],
-                               dim=1).cpu().numpy()
+            # any further per-candidate outputs (the arch gradient's
+            # loss and gradient rows) ride in the same copy
+            extra = [k for k in res
+                     if k not in _METRICS and k != "occupancy"]
+            blocks = [torch.stack(cols, 1), res["occupancy"]] + [
+                res[k].to(F64).reshape(n, -1) for k in extra]
+            packed = torch.cat(blocks, dim=1).cpu().numpy()
         dt = time.perf_counter() - t0
         if is_new:
             compile_stats.record_compile_seconds(dt)
@@ -720,7 +738,12 @@ class _TracedNestModel:
             compile_stats.record_eval_seconds(dt)
         out = {k: packed[:, i].copy() for i, k in enumerate(_METRICS)}
         out["valid"] = out["valid"] != 0
-        out["occupancy"] = packed[:, len(_METRICS):].copy()
+        j = len(_METRICS)
+        for k, blk in zip(["occupancy"] + extra, blocks[1:]):
+            width = blk.shape[1]
+            out[k] = packed[:, j: j + width].reshape(
+                (n,) + tuple(res[k].shape[1:])).copy()
+            j += width
         return out
 
     # ------------------------------------------------------------------
@@ -1294,6 +1317,34 @@ class BatchedModel(_TracedNestModel):
         return self._run(self._prog.fn, (b, ap_rows), wp, bounds.shape, n)
 
 
+def surrogate_loss(out: dict, storage, metric: str, tau: float):
+    """The smooth per-candidate loss the hybrid ES+SGD step descends:
+    ``log(metric)`` plus a softplus capacity barrier per storage level,
+    ``z = (occupancy - capacity) / (tau * capacity)``, the
+    differentiable stand-in for the hard validity mask.  An infinite
+    level contributes ``softplus(-30)`` ~ 0; the double ``where`` keeps
+    its gradient free of ``0 * inf``."""
+    cap = storage[..., STORAGE_FIELDS.index("capacity_words")]
+    finite = torch.isfinite(cap)
+    safe = torch.where(finite, cap, 1.0)
+    z = torch.where(finite, (out["occupancy"] - safe) / (tau * safe),
+                    -30.0)
+    return (torch.log(_max(out[metric], 1e-300))
+            + torch.logaddexp(z, torch.zeros_like(z)).sum(-1))
+
+
+def _check_rank_ids(bounds, rank_ids, n_ranks: int) -> np.ndarray:
+    rank_ids = np.asarray(rank_ids)
+    if rank_ids.shape != bounds.shape:
+        raise ValueError(
+            f"rank_ids shape {rank_ids.shape} != bounds shape "
+            f"{bounds.shape}")
+    if rank_ids.min(initial=0) < 0 or \
+            rank_ids.max(initial=0) >= n_ranks:
+        raise ValueError(f"rank_ids out of range [0, {n_ranks})")
+    return rank_ids
+
+
 class BucketedModel(_TracedNestModel):
     """Batched evaluator for one (design, workload, bucket, device).
 
@@ -1334,6 +1385,66 @@ class BucketedModel(_TracedNestModel):
         return self._single(b, oh, wp, ap)
 
     # ------------------------------------------------------------------
+    def traced_single(self, b, rank_ids, wp_leaves, ap_rows) -> dict:
+        """The shared program's step on device tensors, for composing it
+        into a larger device program: ``search.fused`` runs it inside
+        one captured generation.  ``b`` (C, num_slots) float64 bounds and
+        ``rank_ids`` (C, num_slots) integer rank ids, ``wp_leaves`` the
+        bound workload leaves (:meth:`_bind_params`), ``ap_rows`` the
+        per-candidate ``(storage (C, S, F), compute (C, 4))`` rows.
+        Returns the metric dict as device tensors: no host copy, no
+        synchronization."""
+        return self._prog.fn((b, rank_ids, ap_rows), wp_leaves)
+
+    def evaluate_with_arch_grad(self, bounds, rank_ids,
+                                arch_params: ArchParams | None = None, *,
+                                metric: str = "edp",
+                                surrogate: bool = False,
+                                tau: float = 0.05,
+                                workload_params: WorkloadParams
+                                | None = None) -> dict[str, np.ndarray]:
+        """Like :meth:`evaluate`, plus the gradient of a per-candidate
+        loss with respect to the arch scalar rows, from one
+        ``torch.autograd`` pass.
+
+        ``surrogate=False``: the loss is the raw ``metric``, whose
+        gradients match central finite differences of the scalar
+        oracle.  ``surrogate=True``: the loss is :func:`surrogate_loss`
+        (``log(metric)`` plus a softplus capacity barrier at temperature
+        ``tau``), the stand-in for the hard validity mask that the
+        hybrid ES+SGD step descends.  Returns the :meth:`evaluate` dict
+        plus ``loss`` (C,), ``grad_storage`` (C, S, F) and
+        ``grad_compute`` (C, 4).  The gradient flows from fresh
+        per-candidate leaves; no cached row is written."""
+        bounds = _check_bounds(bounds, self.num_slots)
+        rank_ids = _check_rank_ids(bounds, rank_ids, len(self.ranks))
+        n = len(bounds)
+        wp = self._bind_params(workload_params)
+        ap = self._bind_arch(arch_params, n)
+        compile_stats.record_batched_evals(n, shared=self.program_shared)
+        (b, ids), (storage, comp) = self._upload([bounds, rank_ids], ap, n)
+        storage = storage.detach().clone().requires_grad_()
+        comp = comp.detach().clone().requires_grad_()
+
+        def flat(args, w):
+            with torch.enable_grad():
+                out = self._prog.fn(args, w)
+                loss = (surrogate_loss(out, storage, metric, tau)
+                        if surrogate else out[metric])
+                gs, gc = torch.autograd.grad(
+                    loss.sum(), (storage, comp), allow_unused=True)
+            return {**{k: v.detach() for k, v in out.items()},
+                    "loss": loss.detach(),
+                    "grad_storage": (torch.zeros_like(storage)
+                                     if gs is None else gs),
+                    "grad_compute": (torch.zeros_like(comp)
+                                     if gc is None else gc)}
+
+        return self._run(flat, (b, ids, (storage, comp)), wp,
+                         ("arch_grad", metric, surrogate, tau)
+                         + tuple(bounds.shape), n)
+
+    # ------------------------------------------------------------------
     def evaluate(self, bounds, rank_ids,
                  workload_params: WorkloadParams | None = None,
                  arch_params: ArchParams | None = None
@@ -1344,15 +1455,7 @@ class BucketedModel(_TracedNestModel):
         :meth:`BatchedModel.evaluate`; batched arch params put one design
         point per candidate on this one program."""
         bounds = _check_bounds(bounds, self.num_slots)
-        rank_ids = np.asarray(rank_ids)
-        if rank_ids.shape != bounds.shape:
-            raise ValueError(
-                f"rank_ids shape {rank_ids.shape} != bounds shape "
-                f"{bounds.shape}")
-        if rank_ids.min(initial=0) < 0 or \
-                rank_ids.max(initial=0) >= len(self.ranks):
-            raise ValueError(f"rank_ids out of range [0, "
-                             f"{len(self.ranks)})")
+        rank_ids = _check_rank_ids(bounds, rank_ids, len(self.ranks))
         n = len(bounds)
         wp = self._bind_params(workload_params)
         ap = self._bind_arch(arch_params, n)
@@ -1440,6 +1543,21 @@ def get_bucketed_model(design, workload: Workload, bucket: TemplateBucket,
                       check_capacity, caps, device)
 
 
+#: cache-clear callbacks of downstream modules whose caches hold
+#: references into _PROGRAM_CACHE records (the fused-search program
+#: cache), cleared together so clear_caches() leaves no program alive
+#: through them
+_EXTRA_CACHE_CLEARERS: list = []
+
+
+def register_cache_clearer(fn) -> None:
+    """Register a zero-argument callback to run inside
+    :func:`clear_caches` (idempotent per function object)."""
+    with _CACHE_LOCK:
+        if fn not in _EXTRA_CACHE_CLEARERS:
+            _EXTRA_CACHE_CLEARERS.append(fn)
+
+
 def clear_caches() -> None:
     """Drop the facade and program caches (a testing hook:
     exact compile-count assertions otherwise depend on process-global
@@ -1447,6 +1565,8 @@ def clear_caches() -> None:
     with _CACHE_LOCK:
         _MODEL_CACHE.clear()
         _PROGRAM_CACHE.clear()
+        for fn in _EXTRA_CACHE_CLEARERS:
+            fn()
 
 
 def group_by_template(nests) -> dict[NestTemplate, list[int]]:

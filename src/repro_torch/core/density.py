@@ -150,8 +150,12 @@ def caps_for_models(models: Sequence["DensityModel"],
 # ----------------------------------------------------------------------
 def _tile(p, t):
     """``t`` as float64 on the device of the params (when they are a
-    tensor)."""
+    tensor).  A Python number becomes a fill on the device, not a
+    host-to-device copy, so the statistics can run inside a captured
+    CUDA graph."""
     dev = p.device if isinstance(p, torch.Tensor) else None
+    if isinstance(t, (int, float)):
+        return torch.full((), float(t), dtype=torch.float64, device=dev)
     return torch.as_tensor(t, dtype=torch.float64, device=dev)
 
 

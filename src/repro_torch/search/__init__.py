@@ -14,17 +14,22 @@ fast" into "find good mappings fast" (SparseMap, arXiv 2508.12906):
   * :mod:`runner`     — population evaluation through the batched engine
     on the CUDA card (or the CPU when ``device="cpu"``), scalar-oracle
     validation of the winner
+  * :mod:`fused`      — device-resident ES: the whole ask -> decode ->
+    evaluate -> tell generation as one captured CUDA graph, replayed
+    for a chunk of generations (``run_search(fused=True)`` /
+    ``REPRO_SEARCH_FUSED=1``), with an optional hybrid ES+SGD step on
+    co-search design genes
   * :mod:`log`        — JSON-serializable per-generation trajectory
 
 Entry points: :func:`run_search` here, or
-``repro_torch.core.mapper.search(..., strategy="es")``.  The JAX
-package's device-resident fused search (``search/fused.py``) is not
-ported yet (ROADMAP Queue 1 item 12).
+``repro_torch.core.mapper.search(..., strategy="es")``.
 """
 from .encoding import (COMPUTE_KNOB_LEVEL, CoSearchEncoding, DesignSpace,
                        LevelSlot, MapspaceEncoding, SAF_NONE, SAFOption,
                        TopologyCoSearchEncoding, TopologySpace,
                        prime_factors)
+from .fused import (ChunkAbsorber, FusedProgram, fused_supported,
+                    get_fused_program)
 from .log import GenerationRecord, SearchLog
 from .runner import (KNOWN_SEARCH_ENV, PopulationEvaluator, SearchConfig,
                      run_search, validate_search_env)
@@ -36,6 +41,8 @@ __all__ = [
     "COMPUTE_KNOB_LEVEL", "CoSearchEncoding", "DesignSpace",
     "LevelSlot", "MapspaceEncoding", "SAF_NONE", "SAFOption",
     "TopologyCoSearchEncoding", "TopologySpace", "prime_factors",
+    "ChunkAbsorber", "FusedProgram", "fused_supported",
+    "get_fused_program",
     "GenerationRecord", "SearchLog",
     "KNOWN_SEARCH_ENV", "PopulationEvaluator", "SearchConfig",
     "run_search", "validate_search_env",

@@ -44,10 +44,12 @@ scalars are program inputs and programs are keyed by topology.  The
 archive walk then validates each candidate under its own design, and
 the winner's design is returned as ``SearchResult.best_design``.
 
-Not carried over from the JAX package: sharding the population over a
-device mesh (one card; ROADMAP Queue 1 item 6), the device-resident
-fused search (item 12) and the DSE evaluation service (item 13).  Each
-raises ``NotImplementedError`` when asked for.
+Two other routes: ``fused=True`` runs an eligible ES device-resident
+(``search.fused``: one captured CUDA graph per generation, replayed for
+a chunk of generations), and ``service=`` sends every batched evaluation
+through a ``repro_torch.dse`` evaluation service.  Not carried over
+from the JAX package: sharding the population over a device mesh (one
+card; ROADMAP Queue 1 item 6), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -69,7 +71,7 @@ from ..core.workload import Workload
 from .encoding import (CoSearchEncoding, DesignSpace, MapspaceEncoding,
                        TopologyCoSearchEncoding, TopologySpace, generator)
 from .log import GenerationRecord, SearchLog
-from .strategies import Strategy, make_strategy
+from .strategies import EvolutionStrategy, Strategy, make_strategy
 
 METRICS = ("edp", "cycles", "energy_pj")
 
@@ -95,8 +97,9 @@ KNOWN_SEARCH_ENV = {
     "REPRO_SEARCH_BUCKETED":
         "bucketed dispatch toggle (SearchConfig.bucketed)",
     "REPRO_SEARCH_FUSED":
-        "device-resident fused ES toggle (SearchConfig.fused; not "
-        "ported: raises)",
+        "device-resident fused ES toggle (SearchConfig.fused)",
+    "REPRO_SEARCH_FUSED_CHUNK":
+        "generations per fused chunk (SearchConfig.fused_chunk)",
 }
 
 _TRUE_WORDS = frozenset({"1", "true", "yes", "on"})
@@ -155,9 +158,11 @@ class SearchConfig:
       (huge value => everything scalar; 0/1 => everything batched).
     * ``REPRO_SEARCH_BUCKETED`` — "0"/"false" disables the bucketed
       route (population falls back to per-template grouping).
-    * ``REPRO_SEARCH_FUSED`` — "1"/"true" asks for the device-resident
-      fused ES, which is not ported yet: ``run_search`` then raises
-      ``NotImplementedError`` (ROADMAP Queue 1 item 12).
+    * ``REPRO_SEARCH_FUSED`` — "1"/"true" turns on the device-resident
+      fused ES (``search.fused``) for eligible runs; the host ask/tell
+      loop stays the default and the fallback.
+    * ``REPRO_SEARCH_FUSED_CHUNK`` — generations per fused chunk (graph
+      replays between two device-to-host copies).
 
     Values are validated rather than silently defaulted: a malformed
     integer raises, a non-canonical boolean warns (and is treated as
@@ -172,6 +177,8 @@ class SearchConfig:
         default_factory=lambda: _env_bool("REPRO_SEARCH_BUCKETED", True))
     fused: bool = dataclasses.field(
         default_factory=lambda: _env_bool("REPRO_SEARCH_FUSED", False))
+    fused_chunk: int = dataclasses.field(
+        default_factory=lambda: _env_int("REPRO_SEARCH_FUSED_CHUNK", 16))
 
     def __post_init__(self) -> None:
         validate_search_env()
@@ -185,18 +192,23 @@ class PopulationEvaluator:
     density kind (actual-data included) batched.  Fallbacks:
     per-template grouping (``config.bucketed=False``) and the
     per-candidate scalar path for groups below
-    ``config.batch_threshold``.
+    ``config.batch_threshold``.  With ``service`` (a ``repro_torch.dse``
+    ``ServiceClient`` or ``EvaluationService``) batched evaluations are
+    submitted as population requests instead of run inline, so
+    concurrent searches coalesce into shared program invocations.
     """
 
     def __init__(self, design, workload: Workload, enc: MapspaceEncoding,
                  check_capacity: bool = True,
-                 config: SearchConfig | None = None, device=None):
+                 config: SearchConfig | None = None, device=None,
+                 service=None):
         self.device = resolve_device(device)
         self.model = Sparseloop(design, device=self.device)
         self.workload = workload
         self.enc = enc
         self.check_capacity = check_capacity
         self.config = config or SearchConfig()
+        self.service = service
         self.batched = batched_supported(design, workload)
         #: (design, mapping) co-search: the genome carries design genes
         #: that decode to per-candidate ArchParams rows, so a mixed-design
@@ -281,11 +293,21 @@ class PopulationEvaluator:
             bm = self._group_engine(grp).bucketed_model(
                 self.workload, bucket,
                 check_capacity=self.check_capacity)
-            res = bm.evaluate(bounds, ids, arch_params=ap)
+            res = self._batched(bm, bounds, ids, ap)
             for m in METRICS:
                 out[m][idx] = res[m][:k]
             out["valid"][idx] = res["valid"][:k]
         return out
+
+    def _batched(self, bm, bounds, ids, ap) -> dict[str, np.ndarray]:
+        """One batched evaluation, inline or through the service
+        (``ids`` None for an exact-template model)."""
+        if self.service is not None:
+            return self.service.evaluate(bm, bounds, rank_ids=ids,
+                                         arch_params=ap)
+        if ids is None:
+            return bm.evaluate(bounds, arch_params=ap)
+        return bm.evaluate(bounds, ids, arch_params=ap)
 
     def __call__(self, genomes: np.ndarray) -> dict[str, np.ndarray]:
         n = len(genomes)
@@ -302,7 +324,7 @@ class PopulationEvaluator:
                 self.workload, bucket, check_capacity=self.check_capacity)
             ap = (self.enc.arch_params_of(genomes)
                   if self.cosearch else None)
-            res = bm.evaluate(bounds, ids, arch_params=ap)
+            res = self._batched(bm, bounds, ids, ap)
             for k in METRICS:
                 out[k][:] = res[k]
             out["valid"][:] = res["valid"]
@@ -316,7 +338,7 @@ class PopulationEvaluator:
                     self.workload, template,
                     check_capacity=self.check_capacity)
                 ap = ap_all.take(idx) if ap_all else None
-                res = bm.evaluate(bounds, arch_params=ap)
+                res = self._batched(bm, bounds, None, ap)
                 for k in METRICS:
                     out[k][idx] = res[k]
                 out["valid"][idx] = res["valid"]
@@ -380,6 +402,49 @@ def _run_host(evaluate: PopulationEvaluator, enc, strat, key,
     return archive_fit, archive_gen, n_eval, n_valid
 
 
+def _run_fused(evaluate: PopulationEvaluator, enc, strat, key,
+               generations: int, metric: str, check_capacity: bool,
+               config: SearchConfig, service, sgd_lr: float,
+               sgd_tau: float, log: SearchLog):
+    """The device-resident path: generation chunks run as graph replays
+    (``search.fused``); the host only absorbs each chunk's outputs.
+    Returns the same state as :func:`_run_host` plus the chunk-timing
+    rows for ``log.timing``."""
+    from .fused import ChunkAbsorber, get_fused_program
+
+    bm = evaluate.model.bucketed_model(
+        evaluate.workload, enc.bucket, check_capacity=check_capacity)
+    # device-resident archive: the step carries a top-K (fitness,
+    # genome) buffer and emits per-generation scalars, so the host fold
+    # ingests K rows per chunk instead of pop_size per generation
+    fp = get_fused_program(bm, enc, strat, metric=metric,
+                           sgd_lr=sgd_lr, sgd_tau=sgd_tau,
+                           archive_k=ARCHIVE_SIZE)
+    carry = fp.init_carry(key)
+    absorber = ChunkAbsorber(metric, ARCHIVE_SIZE,
+                             pop_size=strat.pop_size)
+    chunks: list[dict] = []
+    done = 0
+    while done < generations:
+        c = min(max(1, config.fused_chunk), generations - done)
+        t0 = time.perf_counter()
+        with obs.span("search.chunk", start=done, length=c,
+                      pop_size=strat.pop_size) as sp:
+            if service is not None:
+                carry, ys = service.run_fused(
+                    lambda carry=carry, c=c: fp.invoke_chunk(carry, c))
+            else:
+                carry, ys = fp.invoke_chunk(carry, c)
+            absorber.absorb(ys, log)
+            sp.set(evaluations=absorber.n_eval,
+                   best_fitness=absorber.best["fitness"])
+        chunks.append({"start": done, "generations": c,
+                       "wall_s": time.perf_counter() - t0})
+        done += c
+    return (absorber.archive_fit, absorber.archive_gen,
+            absorber.n_eval, absorber.n_valid, chunks)
+
+
 def run_search(design, workload: Workload,
                cons: MapspaceConstraints | None = None,
                strategy: "str | Strategy" = "es", *,
@@ -395,6 +460,8 @@ def run_search(design, workload: Workload,
                topology_space: TopologySpace | None = None,
                service=None,
                fused: bool | None = None,
+               sgd_lr: float = 0.0,
+               sgd_tau: float = 0.05,
                device=None,
                **strategy_options) -> SearchResult:
     """Stochastic mapspace search.  Returns a ``SearchResult`` whose
@@ -429,11 +496,28 @@ def run_search(design, workload: Workload,
     ``SearchResult.best_design``.  Composes with ``design_space`` (knobs
     naming levels a topology dropped are inert there).
 
+    ``service`` (a ``repro_torch.dse`` ``ServiceClient`` or
+    ``EvaluationService``) routes every batched population evaluation
+    through a persistent evaluation service: concurrent searches
+    sharing one service coalesce their generations into shared program
+    invocations.
+
+    ``fused`` (or ``REPRO_SEARCH_FUSED=1``) runs eligible searches
+    device-resident: the whole ask -> decode -> evaluate -> tell
+    generation is one captured CUDA graph on the card (eager steps on
+    the CPU), replayed ``config.fused_chunk`` times between two
+    device-to-host copies (``search.fused``).  Eligible = an
+    EvolutionStrategy on the bucketed batched path with device-decoded
+    design knobs; anything else (hillclimb/annealing, sub-threshold
+    populations, knobs on static fields, topology co-search) takes the
+    host loop — with a warning when ``fused=True`` was explicit.
+    ``sgd_lr > 0`` adds the hybrid ES+SGD step on co-search design
+    genes inside the generation (log-space Lamarckian nudge against the
+    smooth capacity-surrogate loss, temperature ``sgd_tau``).
+
     Not ported, and raising ``NotImplementedError`` rather than falling
     back: ``mesh=`` (population sharding; one card, ROADMAP Queue 1
-    item 6), ``fused=True`` / ``REPRO_SEARCH_FUSED=1`` (the
-    device-resident fused ES, item 12) and ``service=`` (the DSE
-    evaluation service, item 13).
+    item 6).
     """
     if metric not in METRICS:
         raise ValueError(f"metric must be one of {METRICS}, got {metric!r}")
@@ -441,18 +525,10 @@ def run_search(design, workload: Workload,
         raise NotImplementedError(
             "mesh=: sharding the population over a device mesh is not "
             "ported (one card; ROADMAP Queue 1 item 6)")
-    if service is not None:
-        raise NotImplementedError(
-            "service=: the DSE evaluation service is not ported yet "
-            "(ROADMAP Queue 1 item 13)")
     config = config or SearchConfig()
     if batch_threshold is not None:
         config = dataclasses.replace(config,
                                      batch_threshold=batch_threshold)
-    if config.fused if fused is None else fused:
-        raise NotImplementedError(
-            "fused=True / REPRO_SEARCH_FUSED=1: the device-resident fused "
-            "search is not ported yet (ROADMAP Queue 1 item 12)")
     cons = cons or MapspaceConstraints()
     strat = make_strategy(strategy, **strategy_options)
     if topology_space is not None:
@@ -471,7 +547,8 @@ def run_search(design, workload: Workload,
         enc = MapspaceEncoding(workload, design.arch.num_levels, cons)
     evaluate = PopulationEvaluator(design, workload, enc,
                                    check_capacity=check_capacity,
-                                   config=config, device=device)
+                                   config=config, device=device,
+                                   service=service)
 
     seed = int(key) if isinstance(key, (int, np.integer)) else None
     key = generator(key)
@@ -482,6 +559,20 @@ def run_search(design, workload: Workload,
             strat = make_strategy(strat, pop_size=cons.budget)
         generations = max(1, cons.budget // max(1, strat.pop_size))
 
+    from .fused import fused_supported
+    want_fused = config.fused if fused is None else fused
+    use_fused = (want_fused and isinstance(strat, EvolutionStrategy)
+                 and evaluate.batched and config.bucketed
+                 and enc.genome_size > 0
+                 and strat.pop_size >= max(1, config.batch_threshold)
+                 and fused_supported(enc))
+    if fused and not use_fused:
+        warnings.warn(
+            "fused=True requested but this run is not fused-eligible "
+            "(needs an EvolutionStrategy on the bucketed batched path "
+            "with device-decoded design knobs); using the host loop",
+            stacklevel=2)
+
     log = log_to or SearchLog(strategy=strat.name, metric=metric,
                               workload=workload.name,
                               design=design.name or design.arch.name,
@@ -491,9 +582,16 @@ def run_search(design, workload: Workload,
     with compile_stats.track() as st, \
             obs.span("search.run", strategy=strat.name, metric=metric,
                      workload=workload.name, generations=generations,
-                     pop_size=strat.pop_size, fused=False):
-        archive_fit, archive_gen, n_eval, n_valid = _run_host(
-            evaluate, enc, strat, key, generations, metric, log)
+                     pop_size=strat.pop_size, fused=use_fused):
+        if use_fused:
+            archive_fit, archive_gen, n_eval, n_valid, chunks = \
+                _run_fused(evaluate, enc, strat,
+                           key if seed is None else seed, generations,
+                           metric, check_capacity, config, service,
+                           sgd_lr, sgd_tau, log)
+        else:
+            archive_fit, archive_gen, n_eval, n_valid = _run_host(
+                evaluate, enc, strat, key, generations, metric, log)
     # run-level wall-clock attribution: where the search's seconds went
     # (first-call vs warm evaluation, from compile_stats' counters)
     log.timing = {
@@ -502,6 +600,11 @@ def run_search(design, workload: Workload,
         "eval_s": st.eval_seconds,
         "compiles": st.compiles,
     }
+    if use_fused:
+        # chunk-level attribution: per-generation wall_time_s is None
+        # inside a chunk of replays, the measurable unit is the chunk
+        log.timing["fused"] = True
+        log.timing["chunks"] = chunks
 
     # scalar-oracle validation of the winner (best-first archive walk);
     # co-search candidates validate under THEIR OWN design, and the

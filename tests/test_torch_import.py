@@ -34,6 +34,7 @@ _PROBE = textwrap.dedent("""
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
+    print(" ".join(names))
     print(len(names))
 """)
 
@@ -46,4 +47,8 @@ def test_every_module_imports_without_jax_repro_or_triton():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # the port's package, its subpackages and modules all walked
-    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+    lines = out.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 25
+    walked = set(lines[-2].split())
+    assert {"repro_torch.search.fused", "repro_torch.dse",
+            "repro_torch.dse.service", "repro_torch.dse.islands"} <= walked

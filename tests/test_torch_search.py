@@ -15,8 +15,8 @@ every strategy, monotone trajectories, winners re-validated by the
 scalar oracle, the budget as a cap, the scalar route forced by
 ``use_batched=False``, callable objectives rejected with ``strategy=``,
 actual-data density on the batched route, one program per
-free-permutation run, the unported routes raising, the device rule and
-the hillclimb CLI."""
+free-permutation run, the unported mesh route raising while the fused
+and service routes run, the device rule and the hillclimb CLI."""
 import warnings
 from types import SimpleNamespace
 
@@ -312,22 +312,39 @@ def test_validated_result_skips_oracle_rejected_candidates():
 
 
 # ----------------------------------------------------------------------
-# what is not ported raises; the environment is validated
+# what is not ported raises, the fused and service routes run; the
+# environment is validated
 # ----------------------------------------------------------------------
 def test_unported_routes_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_search(DESIGN, WL, CONS, fused=True, device=CPU)
+    """``mesh=`` is the one route left unported (item 6) and raises;
+    ``fused=True``, ``REPRO_SEARCH_FUSED=1`` and ``service=`` run, the
+    fused runs byte-identical from one seed."""
+    from repro_torch.dse import EvaluationService
     with pytest.raises(NotImplementedError, match="item 6"):
         run_search(DESIGN, WL, CONS, mesh="auto", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_search(DESIGN, WL, CONS, service=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        search(DESIGN, WL, CONS, strategy="es", fused=True, device=CPU)
+    fused = [run_search(DESIGN, WL, CONS, fused=True, device=CPU)
+             for _ in range(2)]
+    assert fused[0].log.timing["fused"] is True
+    assert fused[0].log.to_json(timing=False) == \
+        fused[1].log.to_json(timing=False)
+    via_mapper = search(DESIGN, WL, CONS, strategy="es", fused=True,
+                        device=CPU)
+    assert via_mapper.log.to_json(timing=False) == \
+        fused[0].log.to_json(timing=False)
+    with EvaluationService() as svc:
+        served = run_search(DESIGN, WL, CONS, service=svc.client("s"),
+                            batch_threshold=1, device=CPU)
+        assert svc.stats()["requests"] == len(served.log.records)
+    assert served.log.to_json(timing=False) == run_search(
+        DESIGN, WL, CONS, batch_threshold=1,
+        device=CPU).log.to_json(timing=False)
     monkeypatch.setenv("REPRO_SEARCH_FUSED", "1")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_search(DESIGN, WL, CONS, device=CPU)
+    env = run_search(DESIGN, WL, CONS, device=CPU)
+    assert env.log.to_json(timing=False) == \
+        fused[0].log.to_json(timing=False)
     # an explicit fused=False overrides the environment
-    assert run_search(DESIGN, WL, CONS, fused=False, device=CPU).best
+    host = run_search(DESIGN, WL, CONS, fused=False, device=CPU)
+    assert host.best and "fused" not in host.log.timing
 
 
 def test_search_env_is_validated(monkeypatch):
@@ -353,14 +370,25 @@ def test_search_env_is_validated(monkeypatch):
 @pytest.mark.parametrize("name", ["REPRO_SEARCH_FUSED_CHUNK",
                                   "REPRO_SEARCH_DEVICES"])
 def test_settings_that_configure_nothing_here_warn(monkeypatch, name):
-    """The JAX package's fused-search chunk and host-device count have
-    nothing to set in the port (no fused search yet, one card): setting
-    them warns as unknown instead of being accepted silently."""
+    """``REPRO_SEARCH_FUSED_CHUNK`` sets the fused search's chunk and is
+    accepted silently; the JAX package's host-device count
+    (``REPRO_SEARCH_DEVICES``) has nothing to set in the port (one
+    card): setting it warns as unknown instead of being accepted
+    silently."""
     monkeypatch.setenv(name, "8")
+    if name == "REPRO_SEARCH_FUSED_CHUNK":
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            cfg = SearchConfig()
+        assert cfg.fused_chunk == 8
+        monkeypatch.setenv(name, "eight")
+        with pytest.raises(ValueError, match="must be an integer"):
+            SearchConfig()
+        return
     with pytest.warns(UserWarning, match=f"unknown environment variable "
                                          f"{name}"):
         cfg = SearchConfig()
-    assert not hasattr(cfg, "fused_chunk")
+    assert cfg.fused_chunk == 16
 
 
 def test_entry_points_need_cuda_or_cpu(monkeypatch):

@@ -27,8 +27,6 @@ stats = pytest.importorskip("scipy.stats")
 
 import torch_reference as R  # noqa: E402
 
-#: family-wise level of each distribution test (Bonferroni over columns)
-ALPHA = 1e-3
 #: the mutation rate ``strategy_draws`` mutates at
 RATE = 0.15
 
@@ -51,45 +49,8 @@ def draws(reference, port_draws):
     return {k: (v, reference["draws." + k]) for k, v in port_draws.items()}
 
 
-def _counts(col, cats) -> np.ndarray:
-    return np.array([(col == c).sum() for c in cats], float)
-
-
-def _homogeneity(a, b) -> float:
-    """p-value of a chi-square test that samples ``a`` and ``b`` come
-    from one distribution over the values they take."""
-    cats = np.union1d(np.unique(a), np.unique(b))
-    if len(cats) < 2:
-        return 1.0
-    table = np.stack([_counts(a, cats), _counts(b, cats)])
-    return stats.chi2_contingency(table, correction=False).pvalue
-
-
-def _fit(col, probs) -> float:
-    """p-value of a chi-square goodness-of-fit test of ``col`` (values
-    0..len(probs)-1) against ``probs``."""
-    probs = np.asarray(probs, float)
-    keep = probs > 0
-    obs = _counts(col, np.arange(len(probs)))
-    assert obs[~keep].sum() == 0, "a value drawn with probability 0"
-    if keep.sum() < 2:
-        return 1.0
-    exp = probs[keep] / probs[keep].sum() * len(col)
-    return stats.chisquare(obs[keep], exp).pvalue
-
-
-def _assert_all(pvalues, what) -> None:
-    p = np.asarray(pvalues, float)
-    assert p.min() * len(p) >= ALPHA, \
-        f"{what}: p = {p.min():.3g} at column {int(p.argmin())} " \
-        f"(Bonferroni over {len(p)})"
-
-
-def _same_columns(a, b, what) -> None:
-    a, b = np.asarray(a), np.asarray(b)
-    assert a.shape == b.shape
-    _assert_all([_homogeneity(a[:, j], b[:, j])
-                 for j in range(a.shape[1])], what)
+_homogeneity, _fit, _assert_all = R.homogeneity, R.fit_law, R.assert_all
+_same_columns = R.same_columns
 
 
 def test_mutation_resamples_each_gene_as_the_reference(draws):

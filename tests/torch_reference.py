@@ -347,6 +347,56 @@ STRATEGY_NAMES = ("random", "hillclimb", "annealing", "es")
 SEEDS = 20
 
 
+#: family-wise level of each distribution test (Bonferroni over columns)
+ALPHA = 1e-3
+
+
+def _stats():
+    import scipy.stats
+    return scipy.stats
+
+
+def _counts(col, cats) -> np.ndarray:
+    return np.array([(col == c).sum() for c in cats], float)
+
+
+def homogeneity(a, b) -> float:
+    """p-value of a chi-square test that samples ``a`` and ``b`` come
+    from one distribution over the values they take."""
+    cats = np.union1d(np.unique(a), np.unique(b))
+    if len(cats) < 2:
+        return 1.0
+    table = np.stack([_counts(a, cats), _counts(b, cats)])
+    return _stats().chi2_contingency(table, correction=False).pvalue
+
+
+def fit_law(col, probs) -> float:
+    """p-value of a chi-square goodness-of-fit test of ``col`` (values
+    0..len(probs)-1) against ``probs``."""
+    probs = np.asarray(probs, float)
+    keep = probs > 0
+    obs = _counts(col, np.arange(len(probs)))
+    assert obs[~keep].sum() == 0, "a value drawn with probability 0"
+    if keep.sum() < 2:
+        return 1.0
+    exp = probs[keep] / probs[keep].sum() * len(col)
+    return _stats().chisquare(obs[keep], exp).pvalue
+
+
+def assert_all(pvalues, what) -> None:
+    p = np.asarray(pvalues, float)
+    assert p.min() * len(p) >= ALPHA, \
+        f"{what}: p = {p.min():.3g} at column {int(p.argmin())} " \
+        f"(Bonferroni over {len(p)})"
+
+
+def same_columns(a, b, what) -> None:
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    assert_all([homogeneity(a[:, j], b[:, j])
+                for j in range(a.shape[1])], what)
+
+
 def strategy_draws(pkg: str, make_key) -> dict:
     """``DRAWS`` draws of every random primitive of package ``pkg``'s
     search strategies, on the Table-5 conv2_x encoding, plus the
@@ -412,12 +462,70 @@ def convergence_ratios(pkg: str, seeds=range(SEEDS)) -> dict:
     return out
 
 
+#: the hybrid ES+SGD cell of ``benchmarks/bench_fused.py``: population,
+#: generations (one chunk) and the SGD step in log units
+HYBRID_POP, HYBRID_GENERATIONS, HYBRID_LR = 32, 12, 0.5
+
+
+def hybrid_space(pkg: str):
+    """``bench_codesign``'s provisioning space: GLB and SPad capacities
+    and the DRAM bandwidth of ``scnn_like(three_level_arch())``."""
+    search = importlib.import_module(f"{pkg}.search")
+    return search.DesignSpace(
+        capacity_steps={"GLB": (6 * 1024, 48 * 1024, 96 * 1024,
+                                192 * 1024),
+                        "SPad": (64, 256, 512)},
+        bandwidth_steps={"DRAM": (2.0, 8.0, 32.0)})
+
+
+def hybrid_ratios(pkg: str, seeds=range(SEEDS)) -> dict:
+    """Fused ES with the hybrid SGD step over fused pure ES, at equal
+    budget and seed, on the Table-5 conv2_x cell co-searching
+    :func:`hybrid_space` (``bench_fused``'s hybrid comparison), over
+    ``seeds``: each run's best EDP and the ratios hybrid / pure.  The
+    port runs on the CPU."""
+    core, mapper, presets, search = _mods(pkg)
+    wl = core.matmul(3136, 576, 64, densities={"A": ("uniform", 0.4),
+                                               "B": ("uniform", 0.55)})
+    design = presets.scnn_like(presets.three_level_arch())
+    cons = mapper.MapspaceConstraints(
+        budget=HYBRID_POP * HYBRID_GENERATIONS, seed=0,
+        spatial={1: {"n": 8}})
+    kw = dict(strategy="es", pop_size=HYBRID_POP,
+              generations=HYBRID_GENERATIONS,
+              design_space=hybrid_space(pkg), fused=True,
+              config=search.SearchConfig(fused_chunk=HYBRID_GENERATIONS))
+    kw.update({"mesh": None} if pkg == "repro" else {"device": "cpu"})
+    out = {"pure": [], "hybrid": []}
+    for k in seeds:
+        for name, lr in (("pure", 0.0), ("hybrid", HYBRID_LR)):
+            res = search.run_search(design, wl, cons, key=int(k),
+                                    sgd_lr=lr, **kw)
+            out[name].append(float(res.best.edp))
+    out["ratios"] = [h / p for h, p in zip(out["hybrid"], out["pure"])]
+    return out
+
+
 if __name__ == "__main__":
-    # PYTHONPATH=src python tests/torch_reference.py [seeds]
+    # PYTHONPATH=src python tests/torch_reference.py [seeds] [hybrid]
     # prints each strategy's best EDP at budget 512 over enumeration's
     # at 5120, over seeds 0..seeds-1, for the JAX package (in a
-    # subprocess) and for the port (on the CPU)
+    # subprocess) and for the port (on the CPU); with "hybrid", the
+    # hybrid ES+SGD / pure fused ES ratios of the same seeds instead
     n = int(sys.argv[1]) if len(sys.argv) > 1 else SEEDS
+    if sys.argv[2:] == ["hybrid"]:
+        ref = run_reference(f"""
+            import torch_reference as R
+            OUT.update(R.hybrid_ratios("repro", range({n})))
+        """)
+        port = hybrid_ratios("repro_torch", range(n))
+        for name, r in (("repro (JAX, jax.random)", ref),
+                        ("repro_torch (counter hash)", port)):
+            x = r["ratios"]
+            print(f"{name}: hybrid / pure median {np.median(x):.4f}, "
+                  f"<= 1 in {sum(v <= 1.0 for v in x)} of {n}; ratios "
+                  f"{[float(v) for v in x]}")
+        sys.exit(0)
     ref = run_reference(f"""
         import torch_reference as R
         OUT.update(R.convergence_ratios("repro", range({n})))
