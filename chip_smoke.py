@@ -38,8 +38,11 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    a long prefill (1, 4096, 14, 2, 64), qwen3-4b's heads (1, 2048, 32,
    8, 128), all bf16 and causal, one f32 cell and one non-causal cell,
    with kernel, plain, library (``scaled_dot_product_attention`` on the
-   repeated KV heads) and bound times, and the serving loop's refill
-   prefill (1, 512, 14, 2, 64); each K4 row names the variant that ran
+   repeated KV heads) and bound times, the serving loop's refill
+   prefill (1, 512, 14, 2, 64) and the families phase's prefills
+   (llama4-scout (8 and 1, 512, 40, 8, 128), internvl2 (4, 512, 64, 8,
+   128), whisper's decoder (8, 128, 8, 8, 64)); each K4 row names the
+   variant that ran
    (bf16 tensor cores or f32 FMA), and every K4 variant's registers,
    local memory, shared memory, resident blocks per SM and spills are
    printed;
@@ -104,13 +107,33 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    the device's idle share over 8 traced decode steps of a second,
    one-wave loop, and the device time of a traced warm first-wave
    prefill of a third;
-13. serve check: the card's prefill logits and KV cache against the
+13. families: every other model family, one model at a time at full
+   width in bf16 (random seeded weights), freed before the next:
+   deepseek-v2-lite (MoE + MLA, 27 layers), llama4-scout (MoE + GQA, 2
+   of 48 layers), xlstm-350m (24 layers) and zamba2-7b (Mamba2 hybrid,
+   78 layers) through ``ServeLoop`` (batch 8, prompt 512, 16 generated
+   tokens, 12 requests: a first wave and 4 refills; then a second,
+   one-wave loop whose warm first-wave prefill is timed); internvl2-76b (2
+   of 80 layers) through a prefill of 256 patch embeddings + 256 tokens
+   at batch 4 and 16 decode steps; whisper-base (6 + 6 layers) through
+   ``encdec_prefill`` at batch 8 over 1024 frames with a decoder prompt
+   of 128, then 16 decode steps.  Each: prefill and median decode-step
+   ms, tokens/s, peak allocated memory, K4 launched once per decoder
+   layer and prefill for llama4, internvl2 and whisper and never for
+   the others; deepseek's device idle share over 8 traced decode steps;
+   xLSTM's device kernels per sLSTM position;
+14. serve check: the card's prefill logits and KV cache against the
    port's CPU path on the same weights (full width, 2 layers, f32,
    prompt 128, so K4 runs in f32 on the card);
-14. profile: where one warm engine evaluation of a ResNet50 layer's
+15. families check: each family's prefill logits, caches or states and
+   one decode step on the card against the port's CPU path on the same
+   weights in f32 (1e-4 of the largest magnitude): depth 2 (zamba2: one
+   super-block of 6), full width for deepseek, xlstm, zamba2 and
+   whisper, the reduced configurations of llama4 and internvl2;
+16. profile: where one warm engine evaluation of a ResNet50 layer's
    mapspace goes on the card.
 
-Phases 4-12 are the main path: before each, every kernel's launch
+Phases 4-13 are the main path: before each, every kernel's launch
 counter is set to 0, and it is read right after.  The last lines are
 the ``kernels`` JSON object, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -163,12 +186,48 @@ FLASH_CELLS = (
     ("serve_prefill_noncausal", 8, 512, 14, 2, 64, torch.bfloat16, False),
     # the serving loop's refill prefill: 192 of its 240 K4 launches
     ("serve_refill", 1, 512, 14, 2, 64, torch.bfloat16, True),
+    # the families phase's prefills: llama4-scout's first wave and
+    # refill, internvl2's 256 patches + 256 tokens, whisper's decoder
+    ("llama4_prefill", 8, 512, 40, 8, 128, torch.bfloat16, True),
+    ("llama4_refill", 1, 512, 40, 8, 128, torch.bfloat16, True),
+    ("internvl2_prefill", 4, 512, 64, 8, 128, torch.bfloat16, True),
+    ("whisper_dec_prefill", 8, 128, 8, 8, 64, torch.bfloat16, True),
 )
 #: the serve phase: qwen2-0.5b at full width
 SERVE = dict(arch="qwen2-0.5b", batch=8, prompt_len=512, gen=32,
              requests=16)
 #: decode steps traced for the device's idle share
 SERVE_TRACE_STEPS = 8
+#: the families phase, one model at a time at full width in bf16:
+#: (cell, arch, layers (None: full depth), how it is driven, whether its
+#: prefill reaches K4 (then once per decoder layer and prefill))
+FAMILY_CELLS = (
+    ("moe_mla", "deepseek-v2-lite-16b", None, "loop", False),
+    ("moe_gqa", "llama4-scout-17b-a16e", 2, "loop", True),
+    ("xlstm", "xlstm-350m", None, "loop", False),
+    ("hybrid", "zamba2-7b", None, "loop", False),
+    ("vlm", "internvl2-76b", 2, "prefix", True),
+    ("encdec", "whisper-base", None, "encdec", True),
+)
+#: ``ServeLoop`` cells: batch, prompt, generated tokens, requests (a
+#: first wave of 8 and 4 refills); the vlm's prefill (batch, patch
+#: embeddings, tokens, decode steps); whisper's (batch, frames, decoder
+#: prompt, decode steps: 1500 frames raise in the reference's sdpa)
+FAMILY_LOOP = dict(batch=8, prompt_len=512, gen=16, requests=12)
+FAMILY_VLM = dict(batch=4, prefix=256, prompt_len=256, steps=16)
+FAMILY_ENCDEC = dict(batch=8, frames=1024, prompt_len=128, steps=16)
+#: the cell whose decode steps are traced for the device's idle share
+FAMILY_TRACED = "moe_mla"
+#: the card-vs-CPU check of every family in f32: (arch, layers, reduced);
+#: full width where the f32 weights fit in about 8 GB
+FAMILY_CHECKS = (
+    ("deepseek-v2-lite-16b", 2, False),
+    ("llama4-scout-17b-a16e", None, True),
+    ("xlstm-350m", 2, False),
+    ("zamba2-7b", 6, False),        # one super-block of 6
+    ("internvl2-76b", None, True),
+    ("whisper-base", 2, False),     # 2 encoder + 2 decoder layers
+)
 #: max|kernel - plain| / max|plain| for K1-K3 in f32 and bf16 alike (both
 #: sides multiply the same inputs in f32 and sum in f32: only the order of
 #: the sums differs), and for K4 in f32
@@ -1550,15 +1609,17 @@ def phase_fleet(device="cuda", configs=None, reduced=False,
 
 def _serve_model(device, arch, layers=None, dtype=None, reduced=False):
     """The port's model of ``arch`` at full width (``layers`` cuts the
-    depth, ``dtype`` overrides the configuration's), weights drawn from
-    a generator seeded ``SEED`` on ``device``."""
+    depth, the encoder's too, ``dtype`` overrides the configuration's),
+    weights drawn from a generator seeded ``SEED`` on ``device``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import get_api
     cfg = get_config(arch, reduced=reduced)
-    if layers is not None or dtype is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
-                                  dtype=dtype or cfg.dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  enc_layers=layers if cfg.enc_dec else 0)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     api = get_api(cfg)
     gen = torch.Generator(device=device).manual_seed(SEED)
     return cfg, api, api.init(cfg, gen, device)
@@ -1678,6 +1739,270 @@ def phase_serve_logits(device="cuda", arch=SERVE["arch"], layers=2,
     return out
 
 
+def _free(device) -> None:
+    """Give the card back what the last model held."""
+    import gc
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+
+def _sync(device) -> None:
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def _family_loop(device, cfg, api, model, batch, prompt_len, gen,
+                 requests, trace_steps) -> dict:
+    """``ServeLoop`` over ``requests`` prompts: every request served in
+    full; then a second, one-wave loop on the same weights, whose
+    first-wave prefill is the warm one, and with ``trace_steps`` the
+    device's idle share over that many of its decode steps."""
+    from repro_torch.launch.serve import ServeLoop
+    prompts = np.random.default_rng(SEED).integers(
+        1, cfg.vocab_size, size=(requests, prompt_len)).astype(np.int32)
+
+    def new_loop(n, gen_):
+        loop = ServeLoop(api, cfg, model, batch=batch, prompt_len=prompt_len,
+                         gen=gen_, device=None if device == "cuda" else device)
+        for r in range(n):
+            loop.submit(r, prompts[r])
+        t0 = time.perf_counter()
+        loop.start()                    # synchronises inside its span
+        return loop, (time.perf_counter() - t0) * 1e3
+
+    loop, prefill_ms = new_loop(requests, gen)
+    step_ms, more = [], True
+    while more:
+        t0 = time.perf_counter()
+        more = loop.step()              # ends by reading the tokens back
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    res = loop.result()
+    if (loop.served != requests
+            or any(len(v) != gen for v in res["outputs"].values())):
+        raise AssertionError(f"families: {cfg.name}: {loop.served} of "
+                             f"{requests} requests served in full")
+    row = {"batch": batch, "prompt_len": prompt_len, "gen": gen,
+           "requests": requests, "prefills": loop.prefills,
+           "decode_steps": loop.decode_steps, "prefill_ms": prefill_ms,
+           "decode_step_ms_median": float(np.median(step_ms)),
+           "tokens_per_s": res["tokens_per_s"],
+           # this loop's own requests (the metrics' histogram is shared)
+           "latency_p50_s": float(np.percentile(loop.latencies, 50)),
+           "latency_max_s": max(loop.latencies),
+           "tokens": np.concatenate([np.asarray(v) for v in
+                                     res["outputs"].values()])}
+    warm, row["prefill_ms_warm"] = new_loop(batch, trace_steps + 1)
+    row["prefills"] += warm.prefills
+    if trace_steps:
+        warm.step()
+        busy = _device_busy(lambda: [warm.step()
+                                     for _ in range(trace_steps)], device)
+        row["traced_decode"] = dict(busy, steps=trace_steps)
+    return row
+
+
+def _family_greedy(device, cfg, api, model, inputs, S_max, start, steps,
+                   **kw) -> dict:
+    """One prefill of ``inputs`` and ``steps`` greedy decode steps from
+    position ``start``, each timed on the host around a synchronise."""
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(model, inputs, cfg, S_max, **kw)
+    _sync(device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok, tokens, step_ms = logits[:, -1].argmax(-1)[:, None], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = api.decode_step(model, tok, cache, start + i, cfg)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        tokens.append(tok.cpu().numpy())     # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"families: {cfg.name}: logits not finite")
+    total_s = (prefill_ms + sum(step_ms)) / 1e3
+    return {"batch": int(tok.shape[0]), "decode_steps": steps,
+            "prefills": 1, "prefill_ms": prefill_ms,
+            "decode_step_ms_median": float(np.median(step_ms)),
+            "tokens_per_s": tok.shape[0] * steps / total_s,
+            "tokens": np.concatenate(tokens).ravel()}
+
+
+def _slstm_launches(device, cfg, model, batch, steps=32) -> float:
+    """Device kernels per position of one sLSTM layer's Python loop."""
+    from repro_torch.models.ssm import slstm_fwd
+    x = torch.randn((batch, steps, cfg.d_model), device=device).to(
+        getattr(torch, cfg.dtype))
+    slstm = model["pairs"][0]["slstm"]
+    slstm_fwd(slstm, x, cfg)
+    busy = _device_busy(lambda: slstm_fwd(slstm, x, cfg), device)
+    return busy["device_events"] / steps
+
+
+def phase_families(device="cuda", cells=FAMILY_CELLS, reduced=False,
+                   loop=FAMILY_LOOP, vlm=FAMILY_VLM, encdec=FAMILY_ENCDEC,
+                   trace_steps=SERVE_TRACE_STEPS) -> list:
+    """Every family but the dense one, one model at a time at full width
+    in bf16 (``reduced``: the reduced configurations, for a rehearsal):
+    MoE + MLA (deepseek-v2-lite, full depth), MoE + GQA (llama4-scout, 2
+    of 48 layers), xLSTM and the Mamba2 hybrid (full depth) through
+    ``ServeLoop``; internvl2 (2 of 80 layers) through a prefill of patch
+    embeddings and tokens; whisper through ``encdec_prefill``.  Each: a
+    prefill's and the median decode step's wall ms, tokens/s, the peak
+    of allocated device memory, K4's launches against one per decoder
+    layer and prefill where its prefill reaches K4 (none otherwise);
+    deepseek's device idle share over ``trace_steps`` traced decode
+    steps; xLSTM's kernels per sLSTM position."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    rows = []
+    for name, arch, layers, how, k4 in cells:
+        _free(device)
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        before = flash_attention.launches
+        t_cell = time.perf_counter()
+        cfg, api, model = _serve_model(device, arch,
+                                       layers=None if reduced else layers,
+                                       reduced=reduced)
+        gen = torch.Generator(device=device).manual_seed(SEED + 2)
+        dtype = getattr(torch, cfg.dtype)
+        if how == "loop":
+            row = _family_loop(device, cfg, api, model,
+                               trace_steps=trace_steps
+                               if name == FAMILY_TRACED else 0, **loop)
+        elif how == "prefix":
+            toks = torch.randint(1, cfg.vocab_size,
+                                 (vlm["batch"], vlm["prompt_len"]),
+                                 generator=gen, device=device)
+            patches = 0.02 * torch.randn(
+                (vlm["batch"], vlm["prefix"], cfg.d_model), generator=gen,
+                device=device)
+            start = vlm["prefix"] + vlm["prompt_len"]
+            row = _family_greedy(device, cfg, api, model, toks,
+                                 start + vlm["steps"], start, vlm["steps"],
+                                 prefix_embeds=patches.to(dtype))
+            row.update(prefix=vlm["prefix"], prompt_len=vlm["prompt_len"])
+        else:
+            frames = torch.randn((encdec["batch"], encdec["frames"],
+                                  cfg.d_model), generator=gen, device=device)
+            toks = torch.randint(1, cfg.vocab_size,
+                                 (encdec["batch"], encdec["prompt_len"]),
+                                 generator=gen, device=device)
+            start = encdec["prompt_len"]
+            row = _family_greedy(device, cfg, api, model,
+                                 (frames.to(dtype), toks),
+                                 start + encdec["steps"] + 1, start,
+                                 encdec["steps"])
+            row.update(frames=encdec["frames"], prompt_len=start)
+        if cfg.family == "ssm":
+            row["slstm_kernels_per_position"] = _slstm_launches(
+                device, cfg, model, loop["batch"])
+        tokens = row.pop("tokens")
+        if not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"families: {cfg.name}: token ids outside "
+                                 f"the vocabulary")
+        launched = flash_attention.launches - before
+        want = cfg.num_layers * row["prefills"] if k4 else 0
+        row = {"cell": name, "arch": cfg.name, "layers": cfg.num_layers,
+               "dtype": cfg.dtype, "k4_launches": launched,
+               "k4_launches_expected": want, **row,
+               "params": sum(p.numel() for p in model.parameters()),
+               "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30
+               if device != "cpu" else None,
+               "seconds": time.perf_counter() - t_cell}
+        print(f"[families] {json.dumps(row)}")
+        if device != "cpu" and launched != want:
+            raise AssertionError(f"families: {name}: K4 launched {launched} "
+                                 f"times, expected {want}")
+        rows.append(row)
+        del model
+    _free(device)
+    return rows
+
+
+def _k4_archs() -> set:
+    """The architectures whose prefill reaches K4."""
+    return {arch for _, arch, _, _, k4 in FAMILY_CELLS if k4}
+
+
+def _tree_cpu(tree) -> list:
+    """Copies of the tree's leaves in f32 on the CPU (a copy even of a
+    CPU tensor: decode writes the cache in place)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree.to("cpu", torch.float32, copy=True)]
+    return [leaf for t in tree for leaf in _tree_cpu(t)]
+
+
+def phase_families_check(device="cuda", checks=FAMILY_CHECKS,
+                         prompt_len=128, tol=SERVE_LOGITS_TOL) -> list:
+    """Each family on the card against the port's CPU path on the same
+    weights, in f32: prefill logits of the last position, every cache or
+    state leaf, and one decode step's logits and cache, relative to each
+    one's largest magnitude.  Prompts of 128 (internvl2: 64 patch
+    embeddings + 64 tokens; whisper: 256 frames), so K4 runs in f32
+    where the family reaches it."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    rows = []
+    for arch, layers, reduced in checks:
+        _free(device)
+        cfg, api, model = _serve_model(device, arch, layers=layers,
+                                       dtype="float32", reduced=reduced)
+        rng = np.random.default_rng(SEED + 3)
+        n_tok = prompt_len // 2 if cfg.family == "vlm" else prompt_len
+        toks = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, size=(2, n_tok)).astype(np.int32))
+        nxt = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, size=(2, 1)).astype(np.int32))
+        kw = {}
+        if cfg.enc_dec:
+            toks = (torch.from_numpy(rng.normal(size=(2, 256, cfg.d_model))
+                                     .astype(np.float32)), toks)
+        elif cfg.family == "vlm":
+            kw["prefix_embeds"] = torch.from_numpy(0.02 * rng.normal(
+                size=(2, prompt_len - n_tok, cfg.d_model)).astype(np.float32))
+
+        def run(dev):
+            inp = (tuple(t.to(dev) for t in toks) if cfg.enc_dec
+                   else toks.to(dev))
+            lg, cache = api.prefill(model, inp, cfg, prompt_len + 2,
+                                    **{k: v.to(dev) for k, v in kw.items()})
+            out = _tree_cpu((lg, cache))
+            lg, cache = api.decode_step(model, nxt.to(dev), cache,
+                                        prompt_len, cfg)
+            return out + _tree_cpu((lg, cache))
+
+        before = flash_attention.launches
+        got = run(device)
+        launched = flash_attention.launches - before
+        expect = cfg.num_layers if arch in _k4_archs() else 0
+        model.to("cpu")
+        want = run("cpu")
+        errs = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(got, want, strict=True)]
+        n_leaves = len(got) // 2 - 1
+        row = {"arch": cfg.name, "layers": cfg.num_layers,
+               "width": "reduced" if reduced else "full", "dtype": cfg.dtype,
+               "prompt_len": prompt_len, "k4_launches": launched,
+               "k4_launches_expected": expect,
+               "prefill_logits_rel_err": errs[0],
+               "prefill_cache_rel_err": max(errs[1:1 + n_leaves]),
+               "decode_logits_rel_err": errs[1 + n_leaves],
+               "decode_cache_rel_err": max(errs[2 + n_leaves:]),
+               "tol": tol}
+        print(f"[families check] {json.dumps(row)}")
+        finite = all(torch.isfinite(g).all() for g in got)
+        if device != "cpu" and launched != expect:
+            raise AssertionError(f"families check: {cfg.name}: K4 launched "
+                                 f"{launched} times, expected {expect}")
+        if not finite or max(errs) > tol:
+            raise AssertionError(f"families check: the card differs from "
+                                 f"the CPU path: {row}")
+        rows.append(row)
+        del model
+    _free(device)
+    return rows
+
+
 def phase_agreement(device="cuda", configs=("qwen2-0.5b",),
                     reduced=False, reps=5, cells=QWEN2_CELLS) -> list:
     """``validate_fleet`` with all five arms on ``device``."""
@@ -1776,6 +2101,7 @@ def main() -> int:
     fleet = main_path("fleet", phase_fleet)
     rows = main_path("agreement", phase_agreement)
     serve = main_path("serve", phase_serve)
+    families = main_path("families", phase_families)
     launches = {k: sum(p[k] for p in per_phase.values()) for k in counters}
     print(f"[main path] launches per phase {json.dumps(per_phase)}")
     if not all(launches.values()):
@@ -1783,6 +2109,7 @@ def main() -> int:
                              f"{launches}")
     disagree = [r.as_dict() for r in rows if not r.agree]
     serve_check = phase_serve_logits()
+    families_check = phase_families_check()
     profile = phase_profile()
 
     kernels = []
@@ -1804,7 +2131,8 @@ def main() -> int:
                "search": search, "fused": fused, "hybrid": hybrid,
                "service": service, "validation": validation,
                "fleet": fleet, "serve": serve,
-               "serve_check": serve_check, "profile": profile,
+               "serve_check": serve_check, "families": families,
+               "families_check": families_check, "profile": profile,
                "main_path": per_phase,
                "agreement": [r.as_dict() for r in rows],
                "disagreements": disagree,

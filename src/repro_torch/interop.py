@@ -10,9 +10,8 @@ enum member *name*, without importing the JAX package, so one
 description can be fed through both (the tests do).  Packed rows cross
 as numpy: ``core.arch.ArchParams.from_numpy`` and
 ``core.batched.WorkloadParams`` turn them into tensors on a device.
-:func:`params_from_reference` fills the port's ``DecoderLM`` from the
-reference's ``init_lm`` parameters given as nested dicts of numpy
-arrays.
+:func:`params_from_reference` fills the port's model of any family
+from the reference's parameters given as nested dicts of numpy arrays.
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ import enum
 
 import numpy as np
 import torch
+from torch import nn
 
 from .core.arch import Architecture, ArchParams, ComputeLevel, StorageLevel
 from .core.device import resolve_device
@@ -31,7 +31,7 @@ from .core.taxonomy import (ActionSAF, RankFormat, SAFKind, SAFSpec,
 from .core.workload import TensorSpec, Workload
 from .fleet.extract import LayerMatmul, MeshSpec, NetworkWorkloads
 from .models.config import HybridConfig, MLAConfig, MoEConfig, ModelConfig
-from .models.transformer import init_lm
+from .models.transformer import get_api
 
 #: the port's description classes, by the name they share with the JAX
 #: package's
@@ -92,31 +92,37 @@ def _tensor(arr) -> torch.Tensor:
 
 
 def params_from_reference(params, cfg, *, device):
-    """The port's ``DecoderLM`` holding the JAX package's ``init_lm``
-    weights.
+    """The port's model (``get_api(cfg).init``'s module, of any family)
+    holding the JAX package's weights.
 
     ``params`` is the reference's parameter tree as nested dicts of
-    numpy arrays (``jax.tree.map(np.asarray, params)``), the blocks
-    stacked over layers; ``cfg`` the port's (or the reference's)
-    ``ModelConfig``.  Its path ``("blocks", "attn", "wq")[l]`` fills the
-    port's ``blocks.{l}.attn.wq``.  A missing key, an extra key or a
+    numpy arrays (``jax.tree.map(np.asarray, params)``); ``cfg`` the
+    port's (or the reference's) ``ModelConfig``.  The groups the
+    reference stacks over a leading layer axis (``blocks``, ``pairs``,
+    ``mamba``, ``enc``, ``dec``: an ``nn.ModuleList`` in the port) are
+    split over it: the path ``("blocks", "attn", "wq")[l]`` fills
+    the port's ``blocks.{l}.attn.wq``; the rest (the hybrid's one
+    ``shared`` block, embeddings, norms) maps key for key.  A missing
+    key, an extra key, a group not stacked over the port's count or a
     shape that differs from the port's raises ``ValueError``; values are
     kept exactly, in the port's ``cfg.dtype``.  ``device`` follows the
     device rule (None: the CUDA card)."""
     cfg = from_reference(cfg)
     device = resolve_device(device)
+    model = get_api(cfg).init(cfg, None, "meta")
     flat = {}
     for key, arr in _flatten(params):
-        if key.startswith("blocks."):
+        group = key.split(".", 1)[0]
+        if group in model and isinstance(model[group], nn.ModuleList):
+            n = len(model[group])
             arr = np.asarray(arr)
-            if arr.ndim == 0 or arr.shape[0] != cfg.num_layers:
+            if arr.ndim == 0 or arr.shape[0] != n:
                 raise ValueError(f"{key}: {arr.shape} is not stacked over "
-                                 f"{cfg.num_layers} layers")
-            for layer in range(cfg.num_layers):
-                flat[f"blocks.{layer}.{key[len('blocks.'):]}"] = arr[layer]
+                                 f"the port's {n} {group}")
+            for layer in range(n):
+                flat[f"{group}.{layer}.{key[len(group) + 1:]}"] = arr[layer]
         else:
             flat[key] = arr
-    model = init_lm(cfg, None, "meta")
     want = model.state_dict()
     missing = sorted(want.keys() - flat.keys())
     extra = sorted(flat.keys() - want.keys())

@@ -2,10 +2,10 @@
 
 A fixed pool of batch slots runs greedy/temperature decoding; when a slot
 finishes (max length), the next queued request is admitted into that
-slot by prefilling it and splicing its KV cache into the pool along the
-batch axis.  This is the standard continuous-batching loop; it runs on
-the CUDA card (prefill attention through the flash-attention kernel K4)
-or, when asked, on the CPU.
+slot by prefilling it and splicing its cache (KV, or recurrent states)
+into the pool along each leaf's batch axis.  This is the standard
+continuous-batching loop; it runs on the CUDA card (prefill attention
+through the flash-attention kernel K4) or, when asked, on the CPU.
 
 The loop itself is :class:`ServeLoop`, a submit/cancel/shutdown object
 that tests drive step by step under concurrent clients (queue-depth
@@ -31,12 +31,18 @@ from ..models import get_api
 from ..obs import metrics
 
 
-def _splice_cache(pool, single, slot: int):
+def _splice_cache(pool, single, slot: int, axes):
     """Write ``single``'s batch-1 cache into batch slot ``slot`` of
-    ``pool``, IN PLACE (caches are (L, B, ...) tensors, updated along
-    axis 1); returns ``pool``."""
-    for p, s in zip(pool, single):
-        p[:, slot] = s[:, 0].to(p.dtype)
+    ``pool``, IN PLACE, and return ``pool``.  Both are nested tuples of
+    tensors; ``axes`` (``ModelApi.batch_axes``), a tree of the same
+    shape, gives each leaf's batch axis: axis 1 for caches stacked over
+    layers, axis 2 for the hybrid's Mamba states (stacked over
+    super-blocks and the layers inside one)."""
+    if isinstance(pool, torch.Tensor):
+        pool.select(axes, slot).copy_(single.select(axes, 0))
+        return pool
+    for p, s, a in zip(pool, single, axes, strict=True):
+        _splice_cache(p, s, slot, a)
     return pool
 
 
@@ -185,7 +191,8 @@ class ServeLoop:
             with obs.span("serve.prefill", requests=1, refill=True,
                           slot=b):
                 lg, c1 = self._prefill(self._prompts[r2][None, :])
-            self._cache = _splice_cache(self._cache, c1, b)
+            self._cache = _splice_cache(self._cache, c1, b,
+                                        self.api.batch_axes)
             tok_np[b] = int(torch.argmax(lg[0, -1]).item())
             self._slot_req[b] = r2
             self._slot_len[b] = 0

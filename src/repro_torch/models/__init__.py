@@ -1,7 +1,7 @@
 """Models: the configuration dataclasses of the fleet's architectures
 (copied from the JAX package's ``models/config.py``) and the serving path
-of the dense decoder-only family (``layers``, ``transformer``); the other
-families come with later slices."""
+of every family (``layers``, ``ssm``, ``transformer``); training comes
+with a later slice."""
 from .config import HybridConfig, MLAConfig, MoEConfig, ModelConfig
 from .transformer import ModelApi, get_api
 

@@ -1,14 +1,15 @@
-"""Shared layer library of the dense decoder family: norms, rotary
-embeddings, GQA attention (prefill and cached decode), gated MLP,
-embedding and LM head (the dense part of the JAX package's
-``models/layers.py``).
+"""Shared layer library (the JAX package's ``models/layers.py``): norms,
+rotary embeddings, GQA attention (full-sequence, prefill and cached
+decode), MLA with its compressed cache, cross-attention, gated MLP,
+capacity-based MoE, embedding and LM head.
 
 Parameters are :class:`Params` modules read like the reference's nested
 dicts (``p["wq"]``, ``"bq" in p``); weights keep the reference's (d_in,
 d_out) orientation and are used as ``x @ w``.  Attention over long
 sequences is q-chunked; on a CUDA device self-attention under the
-reference's conditions goes to the flash-attention kernel K4.  MLA,
-cross-attention and MoE come with later slices.
+reference's conditions goes to the flash-attention kernel K4.  MLA, the
+MoE's expert products and cross-attention are plain PyTorch, as the
+reference computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -130,10 +131,12 @@ def _mask_bias(q_pos, k_pos, window: int, causal: bool):
 
 def sdpa(q, k, v, q_pos, k_pos, *, causal=True, window=0, chunk=1024):
     """q: (B,Sq,H,D) k/v: (B,Sk,KV,Dk/Dv).  GQA by head repetition.
-    Walks the query chunks so Sq x Sk scores never fully materialize.
-    On a CUDA device, self-attention (causal, no window, Sq == Sk,
-    Sq % 128 == 0) goes to the flash-attention kernel K4; the chunked
-    path is the fallback and the kernel's numerical reference."""
+    Walks the query chunks so Sq x Sk scores never fully materialize;
+    ``Sq > chunk`` needs ``Sq % chunk == 0`` (raises ``ValueError`` where
+    the reference's reshape fails).  On a CUDA device, self-attention
+    (causal, no window, Sq == Sk, Sq % 128 == 0) goes to the
+    flash-attention kernel K4; the chunked path is the fallback and the
+    kernel's numerical reference."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -155,6 +158,9 @@ def sdpa(q, k, v, q_pos, k_pos, *, causal=True, window=0, chunk=1024):
 
     if Sq <= chunk:
         return attend(q, q_pos)
+    if Sq % chunk:
+        raise ValueError(f"{Sq} queries are not a whole number of chunks "
+                         f"of {chunk}")
     n = Sq // chunk
     return torch.cat([attend(q[:, i * chunk:(i + 1) * chunk],
                              q_pos[i * chunk:(i + 1) * chunk])
@@ -201,6 +207,15 @@ def attention_qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
+def attention_fwd(p, x, cfg: ModelConfig, positions, *, causal=True):
+    """Full-sequence attention without a cache (whisper's encoder)."""
+    B, S, _ = x.shape
+    q, k, v = attention_qkv(p, x, cfg, positions)
+    o = sdpa(q, k, v, positions[0], positions[0], causal=causal,
+             window=cfg.attn_window)
+    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(x.dtype)
+
+
 def attention_prefill(p, x, cfg: ModelConfig, positions, *,
                       project=True):
     """Returns (out, (k, v)); ``project=False`` returns the concatenated
@@ -224,8 +239,7 @@ def attention_decode(p, x, cache, cfg: ModelConfig, pos, *,
     B = x.shape[0]
     k_cache, v_cache = cache
     S = k_cache.shape[1]
-    pos_vec = torch.as_tensor(pos, dtype=torch.long,
-                              device=x.device).expand(B)
+    pos_vec = _pos_vec(pos, B, x.device)
     q, k, v = attention_qkv(p, x, cfg, pos_vec[:, None])
     b_idx = torch.arange(B, device=x.device)
     k_cache[b_idx, pos_vec] = k[:, 0].to(k_cache.dtype)
@@ -246,6 +260,107 @@ def attention_decode(p, x, cache, cfg: ModelConfig, pos, *,
     return out, (k_cache, v_cache)
 
 
+def _pos_vec(pos, B: int, device):
+    """``pos`` (an int or a (B,) vector) as a (B,) long vector."""
+    return torch.as_tensor(pos, dtype=torch.long, device=device).expand(B)
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV; the cache holds (c_kv, k_rope)
+# ----------------------------------------------------------------------
+def init_mla(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    return Params(
+        w_dkv=_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                    device=device),
+        w_uk=_init(gen, (m.kv_lora_rank, H, m.qk_nope_head_dim),
+                   device=device),
+        w_uv=_init(gen, (m.kv_lora_rank, H, m.v_head_dim), device=device),
+        w_q=_init(gen, (d, H, m.qk_nope_head_dim + m.qk_rope_head_dim),
+                  device=device),
+        wo=_init(gen, (H * m.v_head_dim, d), device=device),
+        kv_norm=torch.ones((m.kv_lora_rank,), device=device))
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    m = cfg.mla
+    q = torch.einsum("bsd,dhe->bshe", x, p["w_q"].to(x.dtype))
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q[..., :m.qk_nope_head_dim], q_rope
+
+
+def _mla_ckv(p, x, cfg: ModelConfig, positions):
+    r = cfg.mla.kv_lora_rank
+    ckv = x @ p["w_dkv"].to(x.dtype)
+    c_kv = apply_norm({"scale": p["kv_norm"]}, ckv[..., :r])
+    k_rope = apply_rope(ckv[..., None, r:], positions,
+                        cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_fwd(p, x, cfg: ModelConfig, positions, cache=None, pos=None):
+    """Absorbed-matmul MLA: W_uk is folded into the query, so scores are
+    taken in the compressed rank r against the cached ``c_kv``.  Prefill
+    (``cache`` None) returns the prompt's (c_kv, k_rope); decode
+    (``cache`` (B, S, r) and (B, S, rope) with ``pos`` an int or a (B,)
+    vector) writes the new entries at each slot's position IN PLACE and
+    returns the cache given."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    if pos is None:
+        q_pos = positions
+    else:
+        pos_vec = _pos_vec(pos, B, x.device)
+        q_pos = pos_vec[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, q_pos)
+    q_c = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"].to(x.dtype))
+    c_new, kr_new = _mla_ckv(p, x, cfg, q_pos)
+    if pos is None:
+        c_kv, k_rope = c_new, kr_new
+        k_pos = positions[0]
+        ok = (k_pos[None, :] <= k_pos[:, None])[None]          # (1, Sq, Sk)
+    else:
+        c_kv, k_rope = cache
+        b_idx = torch.arange(B, device=x.device)
+        c_kv[b_idx, pos_vec] = c_new[:, 0].to(c_kv.dtype)
+        k_rope[b_idx, pos_vec] = kr_new[:, 0].to(k_rope.dtype)
+        k_pos = torch.arange(c_kv.shape[1], device=x.device)
+        ok = k_pos[None, None, :] <= pos_vec[:, None, None]    # (B, 1, Sk)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = (torch.einsum("bshr,bkr->bhsk", q_c.float(), c_kv.float())
+         + torch.einsum("bshe,bke->bhsk", q_rope.float(),
+                        k_rope.float())) * scale
+    s = s + torch.where(ok, 0.0, NEG_INF)[:, None]
+    prob = torch.softmax(s, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhsk,bkr->bshr", prob, c_kv.to(x.dtype))
+    o = torch.einsum("bshr,rhe->bshe", ctx, p["w_uv"].to(x.dtype))
+    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype), (c_kv, k_rope)
+
+
+# ----------------------------------------------------------------------
+# Cross attention (whisper decoder)
+# ----------------------------------------------------------------------
+def cross_attention_fwd(p, x, enc_kv, cfg: ModelConfig):
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.num_heads,
+                                          cfg.head_dim)
+    k, v = enc_kv
+    o = sdpa(q, k, v, torch.arange(S, device=x.device),
+             torch.arange(k.shape[1], device=x.device), causal=False)
+    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(x.dtype)
+
+
+def encode_kv(p, enc_out, cfg: ModelConfig):
+    B, S, _ = enc_out.shape
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(
+        B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(
+        B, S, cfg.num_kv_heads, cfg.head_dim)
+    return k, v
+
+
 # ----------------------------------------------------------------------
 # Gated MLP
 # ----------------------------------------------------------------------
@@ -263,6 +378,70 @@ def mlp_hidden(p, x):
     """Gated hidden activations without the output projection."""
     return torch.nn.functional.silu(x @ p["wg"].to(x.dtype)) * (
         x @ p["wi"].to(x.dtype))
+
+
+# ----------------------------------------------------------------------
+# MoE: top-k routing with static-capacity gather/scatter dispatch
+# ----------------------------------------------------------------------
+def init_moe(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
+    m = cfg.moe
+    d, E, f = cfg.d_model, m.num_experts, m.expert_d_ff
+    p = Params(router=_init(gen, (d, E), device=device),
+               wi=_init(gen, (E, d, f), 1, device=device),
+               wg=_init(gen, (E, d, f), 1, device=device),
+               wo=_init(gen, (E, f, d), 1, device=device))
+    if m.num_shared_experts:
+        p["shared"] = init_mlp(d, m.shared_d_ff * m.num_shared_experts, gen,
+                               device)
+    return p
+
+
+def moe_fwd(p, x, cfg: ModelConfig):
+    """x: (B, S, d) -> (out, aux).  The reference's static-shape dispatch:
+    the (token, choice) pairs sorted stably by expert, each expert's
+    contiguous segment cut or padded to the capacity C = ceil(T k / E
+    cf), so which tokens are dropped depends on T = B S.  Ties in the
+    router keep the lower expert index first (``lax.top_k``).  The
+    combine is ``index_add_``, atomic on the card (the order of the sums
+    is not fixed there).  ``aux`` is the Switch-style load-balancing
+    loss."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, E = B * S, m.num_experts
+    xt = x.reshape(T, d)
+    probs = torch.softmax((xt @ p["router"].to(x.dtype)).float(), dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :m.top_k], top_e[:, :m.top_k]
+    top_w = (top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+             ).to(x.dtype)
+
+    TK = T * m.top_k
+    C = max(1, int(math.ceil(TK / E * m.capacity_factor)))
+    flat_e = top_e.reshape(TK)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    experts = torch.arange(E, device=x.device)
+    seg_start = torch.searchsorted(sorted_e, experts, side="left")
+    seg_end = torch.searchsorted(sorted_e, experts, side="right")
+    slot = seg_start[:, None] + torch.arange(C, device=x.device)[None, :]
+    valid = slot < seg_end[:, None]                         # (E, C)
+    src = order[slot.clamp(0, TK - 1)]                      # flat indices
+    tok = src // m.top_k
+    x_e = xt[tok] * valid[..., None].to(x.dtype)            # (E, C, d)
+
+    h = torch.nn.functional.silu(
+        torch.einsum("ecd,edf->ecf", x_e, p["wg"].to(x.dtype)))
+    h = h * torch.einsum("ecd,edf->ecf", x_e, p["wi"].to(x.dtype))
+    y_e = torch.einsum("ecf,efd->ecd", h, p["wo"].to(x.dtype))
+
+    w = top_w.reshape(TK)[src] * valid.to(x.dtype)          # (E, C)
+    out = torch.zeros((T, d), dtype=x.dtype, device=x.device).index_add_(
+        0, tok.reshape(-1), (y_e * w[..., None]).reshape(-1, d))
+    if "shared" in p:
+        out = out + mlp_fwd(p["shared"], xt)
+    ce = torch.bincount(flat_e, minlength=E).float() / TK
+    aux = E * torch.sum(probs.mean(0) * ce)
+    return out.reshape(B, S, d), aux
 
 
 # ----------------------------------------------------------------------

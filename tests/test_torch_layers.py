@@ -5,8 +5,10 @@ The same numpy inputs go through ``repro.models.layers`` and
 1e-5 (sums in another order): norms of both kinds, the per-head RMS norm,
 rotary embeddings with full and partial rotation (interleaved pairs),
 the chunked ``sdpa`` (one chunk, several chunks, a window, no causal
-mask, GQA), and GQA attention prefill and cached decode at per-slot
-positions.
+mask, GQA; a query count that is not a whole number of chunks raises in
+both), GQA attention prefill and cached decode at per-slot positions,
+full-sequence attention (causal and not), and whisper's cross-attention
+over the encoder's KV.
 """
 import dataclasses
 
@@ -95,6 +97,51 @@ def test_sdpa(Sq, chunk, window, causal, H, KV):
     got = TL.sdpa(tq, tk, tv, torch.from_numpy(pos), torch.from_numpy(pos),
                   causal=causal, window=window, chunk=chunk)
     _close(got, want)
+
+
+def test_sdpa_raises_on_a_ragged_last_chunk():
+    """Sq = 1500 over chunks of 1024 (whisper's 1500 frames): the
+    reference's reshape fails, and the port raises instead of returning
+    only the first 1024 rows."""
+    rng = np.random.default_rng(9)
+    jq, tq = _pair(rng.normal(size=(1, 1500, 2, 8)))
+    pos = np.arange(1500)
+    with pytest.raises(TypeError):
+        JL.sdpa(jq, jq, jq, jnp.asarray(pos), jnp.asarray(pos),
+                causal=False, chunk=1024)
+    with pytest.raises(ValueError, match="chunks of 1024"):
+        TL.sdpa(tq, tq, tq, torch.from_numpy(pos), torch.from_numpy(pos),
+                causal=False, chunk=1024)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_fwd(causal):
+    """Full-sequence attention (whisper's encoder takes it non-causal)."""
+    jcfg = ref_get_config("whisper-base", reduced=True)
+    cfg = from_reference(jcfg)
+    jp, _ = JL.init_attention(jcfg, jax.random.PRNGKey(10))
+    tp = _tree(jax.tree.map(np.asarray, jp))
+    rng = np.random.default_rng(11)
+    jx, tx = _pair(rng.normal(size=(2, 12, cfg.d_model)))
+    pos = np.broadcast_to(np.arange(12), (2, 12)).astype(np.int32)
+    _close(TL.attention_fwd(tp, tx, cfg, torch.from_numpy(pos),
+                            causal=causal),
+           JL.attention_fwd(jp, jx, jcfg, jnp.asarray(pos), causal=causal))
+
+
+def test_cross_attention_over_encoder_kv():
+    jcfg = ref_get_config("whisper-base", reduced=True)
+    cfg = from_reference(jcfg)
+    jp, _ = JL.init_attention(jcfg, jax.random.PRNGKey(12))
+    tp = _tree(jax.tree.map(np.asarray, jp))
+    rng = np.random.default_rng(13)
+    je, te = _pair(rng.normal(size=(2, 20, cfg.d_model)))
+    jx, tx = _pair(rng.normal(size=(2, 5, cfg.d_model)))
+    jkv, tkv = JL.encode_kv(jp, je, jcfg), TL.encode_kv(tp, te, cfg)
+    for t, j in zip(tkv, jkv):
+        _close(t, j)
+    _close(TL.cross_attention_fwd(tp, tx, tkv, cfg),
+           JL.cross_attention_fwd(jp, jx, jkv, jcfg))
 
 
 @pytest.mark.parametrize("arch,window", [("qwen2-0.5b", 0),

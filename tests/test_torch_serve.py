@@ -130,13 +130,15 @@ def test_params_from_reference_raises(fault):
 
 
 def test_unported_families_raise():
-    for arch in ("llama4-scout-17b-a16e", "deepseek-v2-lite-16b",
-                 "xlstm-350m", "zamba2-7b", "whisper-base"):
+    """Every family serves (``get_api`` gives each its prefill and decode)
+    and training, the part not ported yet, raises for every family."""
+    for arch in ("qwen2-0.5b", "llama4-scout-17b-a16e",
+                 "deepseek-v2-lite-16b", "xlstm-350m", "zamba2-7b",
+                 "internvl2-76b", "whisper-base"):
+        api = get_api(get_config(arch, reduced=True))
+        assert callable(api.prefill) and callable(api.decode_step)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_api(get_config(arch, reduced=True))
-    api = get_api(get_config("qwen2-0.5b", reduced=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.forward_train(None, None, None)
+            api.forward_train(None, None, None)
 
 
 # ----------------------------------------------------------------------
