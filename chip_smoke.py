@@ -122,18 +122,35 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    layer and prefill for llama4, internvl2 and whisper and never for
    the others; deepseek's device idle share over 8 traced decode steps;
    xLSTM's device kernels per sLSTM position;
-14. serve check: the card's prefill logits and KV cache against the
+14. train: LM training through ``launch/train.main`` on qwen2-0.5b as
+   published (24 layers, bf16 weights, f32 AdamW moments, random seeded
+   weights): 30 steps of batch 8 x seq 512, remat "full"; the loss must
+   fall (mean of the last 5 below the first 5's minus 0.1) and K4
+   launch twice a layer and step (forward and its recompute; the
+   gradient is plain PyTorch); first-step and median warm-step ms,
+   tokens/s, peak memory, ``train_mfu``, then one traced warm step (the
+   device's idle share, K4's device ms, the backward attention's); then
+   the restart contract on the reduced configuration (10 steps with a
+   checkpoint every 5, the same command to 16: 6 steps, the last loss
+   below the first run's first);
+15. serve check: the card's prefill logits and KV cache against the
    port's CPU path on the same weights (full width, 2 layers, f32,
    prompt 128, so K4 runs in f32 on the card);
-15. families check: each family's prefill logits, caches or states and
+16. families check: each family's prefill logits, caches or states and
    one decode step on the card against the port's CPU path on the same
    weights in f32 (1e-4 of the largest magnitude): depth 2 (zamba2: one
    super-block of 6), full width for deepseek, xlstm, zamba2 and
    whisper, the reduced configurations of llama4 and internvl2;
-16. profile: where one warm engine evaluation of a ResNet50 layer's
+17. train check: training on the card against the port's CPU path in
+   f32 on the same weights and batch: the loss (1e-5 relative), every
+   gradient and every parameter after one AdamW step (1e-4 of each
+   leaf's largest magnitude); qwen2-0.5b at full width and depth 2, the
+   other nine configurations reduced, batch 2, seq 128, K4 asserted
+   where a family reaches it;
+18. profile: where one warm engine evaluation of a ResNet50 layer's
    mapspace goes on the card.
 
-Phases 4-13 are the main path: before each, every kernel's launch
+Phases 4-14 are the main path: before each, every kernel's launch
 counter is set to 0, and it is read right after.  The last lines are
 the ``kernels`` JSON object, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -228,6 +245,25 @@ FAMILY_CHECKS = (
     ("internvl2-76b", None, True),
     ("whisper-base", 2, False),     # 2 encoder + 2 decoder layers
 )
+#: the train phase: qwen2-0.5b as published (bf16 weights, f32 moments),
+#: 4,096 tokens a step, remat "full" (the CLI's defaults); then the
+#: restart contract on the reduced configuration: ``steps`` with a
+#: checkpoint every ``every``, then the same command to ``resume_to``
+TRAIN = dict(arch="qwen2-0.5b", batch=8, seq=512, steps=30)
+TRAIN_RESTART = dict(batch=4, seq=128, steps=10, every=5, resume_to=16)
+#: the card-vs-CPU check of training in f32: (arch, layers (None: the
+#: configuration's), reduced); qwen2-0.5b at full width, depth 2
+TRAIN_CHECKS = (("qwen2-0.5b", 2, False),) + tuple(
+    (arch, None, True) for arch in (
+        "command-r-35b", "qwen3-4b", "stablelm-1.6b",
+        "llama4-scout-17b-a16e", "deepseek-v2-lite-16b", "xlstm-350m",
+        "zamba2-7b", "internvl2-76b", "whisper-base"))
+#: its batch and sequence (K4 where a family reaches it: S % 128 == 0)
+TRAIN_CHECK_SHAPE = dict(batch=2, seq=128, frames=64)
+#: card vs CPU: the loss relative, each gradient and each parameter after
+#: one AdamW step relative to its leaf's largest magnitude (the CPU
+#: tests' bounds against the JAX package)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 #: max|kernel - plain| / max|plain| for K1-K3 in f32 and bf16 alike (both
 #: sides multiply the same inputs in f32 and sum in f32: only the order of
 #: the sums differs), and for K4 in f32
@@ -1488,12 +1524,14 @@ def _oracle_nest(M: int, K: int, N: int):
                     num_levels=nest.num_levels)
 
 
-def _device_busy(fn, device) -> dict:
+def _device_busy(fn, device, detail=None) -> dict:
     """Wall seconds, device-busy seconds and device events of one call
     of ``fn``, from a ``torch.profiler`` trace, and the device window
     (first device event's start to the last one's end): the idle time
     inside it is gaps between device operations, the rest is the host
-    before and after them."""
+    before and after them.  ``detail(prof)`` adds its dict of figures
+    read from the same trace.  A profiler range's own span on the device
+    timeline (a user annotation) is not device work and is left out."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if device != "cpu":
@@ -1505,13 +1543,15 @@ def _device_busy(fn, device) -> dict:
             torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
     window = (max(e.time_range.end for e in dev)
               - min(e.time_range.start for e in dev)) / 1e6 if dev else 0.0
     return {"traced_s": traced, "device_busy_s": busy,
             "device_window_s": window, "device_events": len(dev),
-            "idle_share": 1.0 - busy / traced if traced else None}
+            "idle_share": 1.0 - busy / traced if traced else None,
+            **(detail(prof) if detail else {})}
 
 
 def phase_fleet(device="cuda", configs=None, reduced=False,
@@ -2003,6 +2043,265 @@ def phase_families_check(device="cuda", checks=FAMILY_CHECKS,
     return rows
 
 
+def _k4_applications(cfg, S: int) -> int:
+    """K4 launches of one forward pass of ``cfg``'s training loss on the
+    card at self-attention length ``S``: each causal self-attention with
+    no window, no MLA, a head dim K4 takes and S % 128 == 0 (the
+    hybrid's shared block once per super-block; whisper's decoder, not
+    its non-causal encoder)."""
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    if (cfg.mla or cfg.family == "ssm" or cfg.attn_window or S % 128
+            or cfg.head_dim not in HEAD_DIMS):
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid.period
+    return cfg.num_layers
+
+
+def _train_trace_detail(prof) -> dict:
+    """K4's device ms and kernels, and the device ms of the kernels
+    launched under the backward of its autograd Function (plain
+    PyTorch; the host-side ranges), in one traced step."""
+    from repro_torch.kernels.flash_attention.ops import BACKWARD_RANGE
+    k4 = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and ("wg_kernel" in e.name or "fma_kernel" in e.name)]
+    bwd = [e for e in prof.events() if e.name == BACKWARD_RANGE
+           and e.device_type == torch.autograd.DeviceType.CPU]
+    dev_us = [e.device_time_total if hasattr(e, "device_time_total")
+              else e.cuda_time_total for e in bwd]
+    return {"k4_device_ms": sum(e.time_range.elapsed_us() for e in k4) / 1e3,
+            "k4_kernels": len(k4),
+            "attention_backward_device_ms": sum(dev_us) / 1e3,
+            "attention_backward_ranges": len(bwd)}
+
+
+def phase_train(device="cuda", arch=TRAIN["arch"], reduced=False,
+                batch=TRAIN["batch"], seq=TRAIN["seq"],
+                steps=TRAIN["steps"]) -> dict:
+    """LM training through the CLI (``launch/train.main``): ``arch`` with
+    random seeded weights, ``steps`` steps of ``batch`` x ``seq`` tokens,
+    remat "full", no checkpoints.  The loss must be finite and the mean
+    of the last 5 below the first 5's minus 0.1 (the JAX package's
+    contract); K4 launches twice a layer and step on the card (the
+    forward and its recompute).  First-step and median warm-step ms,
+    tokens/s, peak allocated memory and ``train_mfu``: 6 x parameters x
+    tokens plus causal attention (3 x 4 B H D S(S+1)/2 a layer: forward
+    and backward, no recompute) over the warm step and the bf16 dense
+    peak.  Then one traced warm step of a second model: the device's
+    idle share, K4's device ms and the backward attention's.  Then the
+    restart contract on the reduced configuration (``TRAIN_RESTART``):
+    ``steps`` with a checkpoint every ``every``, the same command to
+    ``resume_to``: it runs the steps left, and its last loss is below
+    the first run's first."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import abstract_params, make_train_step
+    from repro_torch.models import get_api
+    from repro_torch.optim import adamw_init
+    cfg = get_config(arch, reduced=reduced)
+    on_card = device != "cpu"
+    dev_args = [] if device == "cuda" else ["--device", str(device)]
+    per_step = 2 * _k4_applications(cfg, seq) if on_card else 0
+    _free(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    before = flash_attention.launches
+    t0 = time.perf_counter()
+    out = train.main(["--arch", arch, "--steps", str(steps), "--batch",
+                      str(batch), "--seq", str(seq), "--log-every", "10"]
+                     + (["--reduced"] if reduced else []) + dev_args)
+    wall = time.perf_counter() - t0
+    launched = flash_attention.launches - before
+    losses = np.asarray(out["losses"])
+    step_ms = np.asarray(out["step_s"]) * 1e3
+    warm_ms = float(np.median(step_ms[1:]))
+    tokens = batch * seq
+    n_params = sum(p.numel() for p in abstract_params(cfg).parameters())
+    attn = 3 * cfg.num_layers * 4 * batch * cfg.num_heads * cfg.head_dim \
+        * seq * (seq + 1) / 2
+    flops = 6 * n_params * tokens + attn
+    row = {"arch": cfg.name, "device": torch.cuda.get_device_name(0)
+           if on_card else "cpu", "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "params": n_params, "batch": batch,
+           "seq": seq, "steps": steps, "remat": "full",
+           "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+           "first5_mean": float(losses[:5].mean()),
+           "last5_mean": float(losses[-5:].mean()),
+           "first_step_ms": float(step_ms[0]), "warm_step_ms_median": warm_ms,
+           "warm_step_ms_max": float(step_ms[1:].max()),
+           "tokens_per_s": tokens / warm_ms * 1e3,
+           "model_tflop_per_step": flops / 1e12,
+           "train_mfu": flops / (warm_ms / 1e3) / PEAK_OPS[torch.bfloat16],
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30
+           if on_card else None,
+           "k4_launches": launched, "k4_launches_expected": per_step * steps,
+           "stragglers": len(out["stragglers"]), "wall_s": wall}
+    print(f"[train] {json.dumps(row)}")
+    if not np.isfinite(losses).all() or len(losses) != steps:
+        raise AssertionError(f"train: {len(losses)} losses, finite "
+                             f"{bool(np.isfinite(losses).all())}")
+    if not row["last5_mean"] < row["first5_mean"] - 0.1:
+        raise AssertionError(f"train: the loss did not fall: {row}")
+    if launched != per_step * steps:
+        raise AssertionError(f"train: K4 launched {launched} times, "
+                             f"expected {per_step} a step x {steps}")
+    _free(device)
+    model = get_api(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    opt = adamw_init(model)
+    step = make_train_step(cfg, lr=1e-3)
+    pipe = make_pipeline(cfg, seq, batch, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in next(pipe).items()} for _ in range(3)]
+    before = flash_attention.launches
+    for b in batches[:2]:               # warm
+        float(step(model, opt, b)[2]["loss"])
+    row["traced_step"] = _device_busy(
+        lambda: float(step(model, opt, batches[2])[2]["loss"]), device,
+        detail=_train_trace_detail)
+    traced = flash_attention.launches - before
+    print(f"[train] traced warm step {json.dumps(row['traced_step'])}")
+    if traced != 3 * per_step:
+        raise AssertionError(f"train: K4 launched {traced} times in 3 "
+                             f"steps, expected {3 * per_step}")
+    del model, opt
+    _free(device)
+    restart = TRAIN_RESTART
+    ck = _root() / "chiprun_out" / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    base = ["--arch", arch, "--reduced", "--batch", str(restart["batch"]),
+            "--seq", str(restart["seq"]), "--ckpt-dir", str(ck),
+            "--ckpt-every", str(restart["every"])] + dev_args
+    before = flash_attention.launches
+    first = train.main(base + ["--steps", str(restart["steps"])])
+    second = train.main(base + ["--steps", str(restart["resume_to"])])
+    shutil.rmtree(ck, ignore_errors=True)
+    left = restart["resume_to"] - restart["steps"]
+    small = get_config(arch, reduced=True)
+    want = (2 * _k4_applications(small, restart["seq"]) * restart["resume_to"]
+            if on_card else 0)
+    row["restart"] = {"first_losses": first["losses"],
+                      "resumed_losses": second["losses"],
+                      "k4_launches": flash_attention.launches - before,
+                      "k4_launches_expected": want}
+    print(f"[train] restart {json.dumps(row['restart'])}")
+    if len(second["losses"]) != left \
+            or not second["losses"][-1] < first["losses"][0]:
+        raise AssertionError(f"train: the restart did not resume: "
+                             f"{row['restart']}")
+    if row["restart"]["k4_launches"] != want:
+        raise AssertionError(f"train: restart K4 launches {row['restart']}")
+    return row
+
+
+def _loss_and_grads(model, cfg, np_batch, device) -> tuple:
+    """(loss, gradients copied to the CPU) of ``model`` on ``device``."""
+    from repro_torch.launch.steps import make_loss_fn
+    batch = {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()}
+    model.requires_grad_(True)
+    loss = make_loss_fn(cfg)(model, batch)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.to("cpu", copy=True)
+                                  for n, p in model.named_parameters()}
+
+
+def _adamw_step(model, grads, lr: float) -> dict:
+    """The parameters of ``model`` after one AdamW step from zero moments
+    with ``grads`` (copied to its device), copied to the CPU."""
+    from repro_torch.optim import adamw_init, adamw_update
+    params = dict(model.named_parameters())
+    dev = next(iter(params.values())).device
+    adamw_update({n: g.to(dev) for n, g in grads.items()},
+                 adamw_init(model), params, lr=lr)
+    return {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+
+
+def phase_train_check(device="cuda", checks=TRAIN_CHECKS) -> list:
+    """Training on the card against the port's CPU path on the same
+    weights and batch (numpy from a seed), in f32: the loss (relative)
+    and every gradient, then every parameter after one AdamW step from
+    zero moments with the same (the CPU's) gradients on both (relative
+    to each leaf's largest magnitude).  The step takes one gradient on
+    both because Adam's first step is g / (|g| + 1e-8), a sign for most
+    elements: a gradient difference of 1e-6 at an element near 1e-8
+    moves it by up to lr (measured 1.7e-3 of ``mlp.wo``'s largest
+    magnitude at qwen2-0.5b's full width).  Sequences of 128 (internvl2:
+    256 patch embeddings before them; whisper: 64 frames), so K4 runs in
+    f32 wherever a family reaches it, twice a layer (forward,
+    recompute)."""
+    import copy
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.steps import VLM_PATCHES
+    rows = []
+    shape, lr = TRAIN_CHECK_SHAPE, 1e-3
+    B, S = shape["batch"], shape["seq"]
+    for arch, layers, reduced in checks:
+        _free(device)
+        cfg, _, model = _serve_model(device, arch, layers=layers,
+                                     dtype="float32", reduced=reduced)
+        rng = np.random.default_rng(SEED + 4)
+
+        def ints():
+            return rng.integers(0, cfg.vocab_size, size=(B, S)).astype(
+                np.int32)
+
+        nb, S_attn = {"targets": ints()}, S
+        if cfg.enc_dec:
+            nb["frames"] = rng.normal(
+                size=(B, shape["frames"], cfg.d_model)).astype(np.float32)
+            nb["dec_tokens"] = ints()
+        else:
+            nb["tokens"] = ints()
+            if cfg.frontend == "vision_stub":
+                nb["patches"] = 0.02 * rng.normal(
+                    size=(B, VLM_PATCHES, cfg.d_model)).astype(np.float32)
+                S_attn += VLM_PATCHES
+        cpu_model = copy.deepcopy(model).to("cpu")
+        before = flash_attention.launches
+        loss, grads = _loss_and_grads(model, cfg, nb, device)
+        launched = flash_attention.launches - before
+        want_loss, want_grads = _loss_and_grads(cpu_model, cfg, nb, "cpu")
+        stepped = _adamw_step(model, want_grads, lr)
+        want_params = _adamw_step(cpu_model, want_grads, lr)
+        expect = 2 * _k4_applications(cfg, S_attn) if device != "cpu" else 0
+
+        def worst(a, b):
+            errs = {n: float((a[n] - w).abs().max()
+                             / w.abs().max().clamp_min(1e-30))
+                    for n, w in b.items()}
+            name = max(errs, key=errs.get)
+            return errs[name], name
+
+        grad_err, grad_leaf = worst(grads, want_grads)
+        param_err, param_leaf = worst(stepped, want_params)
+        row = {"arch": cfg.name, "layers": cfg.num_layers,
+               "width": "reduced" if reduced else "full", "batch": B,
+               "seq": S_attn, "k4_launches": launched,
+               "k4_launches_expected": expect, "loss": loss,
+               "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+               "grad_rel_err": grad_err, "grad_worst_leaf": grad_leaf,
+               "param_rel_err": param_err, "param_worst_leaf": param_leaf,
+               "tol": [TRAIN_LOSS_TOL, TRAIN_GRAD_TOL]}
+        print(f"[train check] {json.dumps(row)}")
+        finite = all(bool(torch.isfinite(g).all())
+                     for tree in (grads, stepped) for g in tree.values())
+        if device != "cpu" and launched != expect:
+            raise AssertionError(f"train check: {cfg.name}: K4 launched "
+                                 f"{launched} times, expected {expect}")
+        if (not finite or row["loss_rel_err"] > TRAIN_LOSS_TOL
+                or grad_err > TRAIN_GRAD_TOL or param_err > TRAIN_GRAD_TOL):
+            raise AssertionError(f"train check: the card differs from the "
+                                 f"CPU path: {row}")
+        rows.append(row)
+        del model, cpu_model
+    _free(device)
+    return rows
+
+
 def phase_agreement(device="cuda", configs=("qwen2-0.5b",),
                     reduced=False, reps=5, cells=QWEN2_CELLS) -> list:
     """``validate_fleet`` with all five arms on ``device``."""
@@ -2102,6 +2401,7 @@ def main() -> int:
     rows = main_path("agreement", phase_agreement)
     serve = main_path("serve", phase_serve)
     families = main_path("families", phase_families)
+    train = main_path("train", phase_train)
     launches = {k: sum(p[k] for p in per_phase.values()) for k in counters}
     print(f"[main path] launches per phase {json.dumps(per_phase)}")
     if not all(launches.values()):
@@ -2110,6 +2410,7 @@ def main() -> int:
     disagree = [r.as_dict() for r in rows if not r.agree]
     serve_check = phase_serve_logits()
     families_check = phase_families_check()
+    train_check = phase_train_check()
     profile = phase_profile()
 
     kernels = []
@@ -2132,7 +2433,8 @@ def main() -> int:
                "service": service, "validation": validation,
                "fleet": fleet, "serve": serve,
                "serve_check": serve_check, "families": families,
-               "families_check": families_check, "profile": profile,
+               "families_check": families_check, "train": train,
+               "train_check": train_check, "profile": profile,
                "main_path": per_phase,
                "agreement": [r.as_dict() for r in rows],
                "disagreements": disagree,

@@ -11,7 +11,9 @@ description can be fed through both (the tests do).  Packed rows cross
 as numpy: ``core.arch.ArchParams.from_numpy`` and
 ``core.batched.WorkloadParams`` turn them into tensors on a device.
 :func:`params_from_reference` fills the port's model of any family
-from the reference's parameters given as nested dicts of numpy arrays.
+from the reference's parameters given as nested dicts of numpy arrays,
+and :func:`opt_state_from_reference` the port's optimizer state from the
+reference's, so both packages can take a training step from one state.
 """
 from __future__ import annotations
 
@@ -91,25 +93,11 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def params_from_reference(params, cfg, *, device):
-    """The port's model (``get_api(cfg).init``'s module, of any family)
-    holding the JAX package's weights.
-
-    ``params`` is the reference's parameter tree as nested dicts of
-    numpy arrays (``jax.tree.map(np.asarray, params)``); ``cfg`` the
-    port's (or the reference's) ``ModelConfig``.  The groups the
-    reference stacks over a leading layer axis (``blocks``, ``pairs``,
-    ``mamba``, ``enc``, ``dec``: an ``nn.ModuleList`` in the port) are
-    split over it: the path ``("blocks", "attn", "wq")[l]`` fills
-    the port's ``blocks.{l}.attn.wq``; the rest (the hybrid's one
-    ``shared`` block, embeddings, norms) maps key for key.  A missing
-    key, an extra key, a group not stacked over the port's count or a
-    shape that differs from the port's raises ``ValueError``; values are
-    kept exactly, in the port's ``cfg.dtype``.  ``device`` follows the
-    device rule (None: the CUDA card)."""
-    cfg = from_reference(cfg)
-    device = resolve_device(device)
-    model = get_api(cfg).init(cfg, None, "meta")
+def _port_keys(params, model, cfg) -> dict:
+    """The reference's tree of numpy arrays flattened to the state-dict
+    keys of the port's ``model``: the groups stacked over a leading
+    layer axis are split over it; raises ``ValueError`` on a missing or
+    extra key or a wrong stack count."""
     flat = {}
     for key, arr in _flatten(params):
         group = key.split(".", 1)[0]
@@ -129,8 +117,31 @@ def params_from_reference(params, cfg, *, device):
     if missing or extra:
         raise ValueError(f"reference parameters do not match the port's "
                          f"{cfg.name}: missing {missing}, extra {extra}")
+    return flat
+
+
+def params_from_reference(params, cfg, *, device):
+    """The port's model (``get_api(cfg).init``'s module, of any family)
+    holding the JAX package's weights.
+
+    ``params`` is the reference's parameter tree as nested dicts of
+    numpy arrays (``jax.tree.map(np.asarray, params)``); ``cfg`` the
+    port's (or the reference's) ``ModelConfig``.  The groups the
+    reference stacks over a leading layer axis (``blocks``, ``pairs``,
+    ``mamba``, ``enc``, ``dec``: an ``nn.ModuleList`` in the port) are
+    split over it: the path ``("blocks", "attn", "wq")[l]`` fills
+    the port's ``blocks.{l}.attn.wq``; the rest (the hybrid's one
+    ``shared`` block, embeddings, norms) maps key for key.  A missing
+    key, an extra key, a group not stacked over the port's count or a
+    shape that differs from the port's raises ``ValueError``; values are
+    kept exactly, in the port's ``cfg.dtype``.  ``device`` follows the
+    device rule (None: the CUDA card)."""
+    cfg = from_reference(cfg)
+    device = resolve_device(device)
+    model = get_api(cfg).init(cfg, None, "meta")
+    flat = _port_keys(params, model, cfg)
     state = {}
-    for key, ref in want.items():
+    for key, ref in model.state_dict().items():
         got = _tensor(flat[key])
         if tuple(got.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: reference shape {tuple(got.shape)}, "
@@ -138,3 +149,34 @@ def params_from_reference(params, cfg, *, device):
         state[key] = got.to(device=device, dtype=ref.dtype)
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def opt_state_from_reference(opt_state, model, cfg, *, device):
+    """The port's ``AdamWState`` for ``model`` holding the JAX package's
+    ``AdamWState``, given as numpy: ``mu`` and ``nu`` as nested dicts of
+    arrays shaped like the reference's parameters, ``step`` a scalar
+    (``jax.tree.map(np.asarray, state)``, or a dict of those three).
+    The moments are split over the stacked groups as
+    :func:`params_from_reference` splits the weights and kept exactly in
+    f32; a key or shape that does not match ``model`` raises
+    ``ValueError``."""
+    from .optim import AdamWState
+    cfg = from_reference(cfg)
+    device = resolve_device(device)
+    get = (opt_state.get if isinstance(opt_state, dict)
+           else lambda k: getattr(opt_state, k))
+    params = dict(model.named_parameters())
+    moments = []
+    for tree in (get("mu"), get("nu")):
+        flat = _port_keys(tree, model, cfg)
+        out = {}
+        for name, p in params.items():
+            arr = np.asarray(flat[name], np.float32)
+            if arr.shape != tuple(p.shape):
+                raise ValueError(f"{name}: reference moment shape "
+                                 f"{arr.shape}, the port's {tuple(p.shape)}")
+            out[name] = torch.from_numpy(arr.copy()).to(device)
+        moments.append(out)
+    step = torch.tensor(int(np.asarray(get("step"))), dtype=torch.int32,
+                        device=device)
+    return AdamWState(mu=moments[0], nu=moments[1], step=step)

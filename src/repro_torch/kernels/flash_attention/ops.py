@@ -7,7 +7,12 @@ tensor it launches the kernel or raises; it never falls back.  It counts
 its launches in ``flash_attention.launches``.  The kernel is built at
 first use with ``nvcc`` for ``sm_90a`` (``kernels.nvcc``), launches on
 PyTorch's current stream and allocates nothing: the wrapper allocates the
-output.
+output.  On the card the output carries a gradient: the launch sits in
+an autograd Function whose backward, ``flash_attention_backward``, is
+plain PyTorch in f32 on the saved q, k and v.  There is no backward
+kernel, since the JAX package has none (``jax.grad`` through its Pallas
+K4 fails); the training step recomputes the forward under
+checkpointing, so K4 launches twice a layer and step there.
 
 As the JAX package's ``flash_attention``: q (B, S, H, D), k and v
 (B, S, KV, D) with H a multiple of KV (GQA: query head h reads KV head
@@ -58,6 +63,8 @@ LIBRARY = CudaLibrary(
 #: the head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
+#: the profiler range around each backward of K4's autograd Function
+BACKWARD_RANGE = "flash_attention.backward"
 #: the variants ``flash_attention_info`` of the library reports
 VARIANTS = {1: "bf16 tensor cores (wgmma, TMA ring)", 0: "f32 FMA"}
 
@@ -170,14 +177,57 @@ def kernel_info(dtype, D: int, causal: bool = True) -> dict:
             "blocks_per_sm": info[4]}
 
 
-def flash_attention(q, k, v, *, bq=128, bk=128, causal=True):
-    """Multi-head flash attention (K4), GQA by head sharing: (B, S, H, D)
-    f32 = softmax(q k^T / sqrt(D), causal or not) v.  Under causal
-    masking the key loop stops at the diagonal (SKIP, where the TPU
-    kernel GATES future tiles; same numerics)."""
-    B, S, H, KV, D, bq, bk = _shapes(q, k, v, bq, bk)
-    if all(x.device.type == "cpu" for x in (q, k, v)):
-        return flash_attention_plain(q, k, v, bq=bq, bk=bk, causal=causal)
+def flash_attention_backward(q, k, v, dout, *, causal=True, chunk=1024):
+    """(dq, dk, dv) of :func:`flash_attention` at ``q, k, v`` for the
+    output gradient ``dout``, in plain PyTorch: the softmax gradient
+    dS = P * (dP - rowsum(dO * O)), with dP = dO V^T and O = P V
+    recomputed, all in f32 from the saved inputs, one chunk of ``chunk``
+    queries at a time (under causal masking only the keys up to the
+    chunk's end), then cast to the inputs' types.  GQA: the gradients of
+    k and v are summed over the query heads that share them.  It equals
+    autograd through :func:`flash_attention_plain` (and through the
+    chunked ``sdpa``) on the same inputs, up to the order of f32 sums;
+    in bf16 the plain version also rounds P and dP to bf16, this
+    function does not.  The (chunk, keys) tensors are made four times
+    (S, P, dP, its product with P in place) and read a few times each."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().transpose(1, 2) * scale              # (B, H, S, D)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    do = dout.float().transpose(1, 2)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    pos = torch.arange(S, device=q.device)
+    for c0 in range(0, S, chunk):
+        c1 = min(c0 + chunk, S)
+        n = c1 if causal else S                         # keys it can see
+        qc, doc, kc, vc = qf[:, :, c0:c1], do[:, :, c0:c1], kf[:, :, :n], \
+            vf[:, :, :n]
+        s = qc @ kc.transpose(-1, -2)                   # (B, H, C, n)
+        if causal:
+            s.masked_fill_(pos[None, :n] > pos[c0:c1, None], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        rowsum = (doc * (p @ vc)).sum(dim=-1, keepdim=True)   # dO . O
+        ds = (doc @ vc.transpose(-1, -2)).sub_(rowsum).mul_(p)
+        dq[:, :, c0:c1] = (ds @ kc) * scale
+        dk[:, :, :n] += ds.transpose(-1, -2) @ qc       # qc carries scale
+        dv[:, :, :n] += p.transpose(-1, -2) @ doc
+    if rep > 1:
+        dk = dk.reshape(B, KV, rep, S, D).sum(dim=2)
+        dv = dv.reshape(B, KV, rep, S, D).sum(dim=2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+def _launch(q, k, v, causal: bool):
+    """One launch of the kernel on CUDA tensors; counts it."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
     _check_cuda(q, k, v, D)
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
     err = LIBRARY.lib().flash_attention(
@@ -192,7 +242,44 @@ def flash_attention(q, k, v, *, bq=128, bk=128, causal=True):
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K4 on the card with a gradient.  The forward launches the kernel;
+    the backward is :func:`flash_attention_backward`, plain PyTorch on
+    the saved q, k and v.  There is no backward kernel: the JAX package
+    has none to port (``jax.grad`` through its Pallas K4 fails), and the
+    function it differentiates off the TPU is this one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            dq, dk, dv = flash_attention_backward(q, k, v, dout,
+                                                  causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, bq=128, bk=128, causal=True):
+    """Multi-head flash attention (K4), GQA by head sharing: (B, S, H, D)
+    f32 = softmax(q k^T / sqrt(D), causal or not) v.  Under causal
+    masking the key loop stops at the diagonal (SKIP, where the TPU
+    kernel GATES future tiles; same numerics).  On the card the result
+    carries a gradient to q, k and v (``_FlashAttention``); CPU tensors
+    go to :func:`flash_attention_plain`, which autograd differentiates."""
+    B, S, H, KV, D, bq, bk = _shapes(q, k, v, bq, bk)
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        return flash_attention_plain(q, k, v, bq=bq, bk=bk, causal=causal)
+    return _FlashAttention.apply(q, k, v, causal)
+
+
 flash_attention.launches = 0
 
-__all__ = ["HEAD_DIMS", "LIBRARY", "flash_attention",
-           "flash_attention_plain", "flash_attention_ref", "kernel_info"]
+__all__ = ["BACKWARD_RANGE", "HEAD_DIMS", "LIBRARY", "flash_attention",
+           "flash_attention_backward", "flash_attention_plain",
+           "flash_attention_ref", "kernel_info"]

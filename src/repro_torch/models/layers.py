@@ -5,9 +5,14 @@ capacity-based MoE, embedding and LM head.
 
 Parameters are :class:`Params` modules read like the reference's nested
 dicts (``p["wq"]``, ``"bq" in p``); weights keep the reference's (d_in,
-d_out) orientation and are used as ``x @ w``.  Attention over long
-sequences is q-chunked; on a CUDA device self-attention under the
-reference's conditions goes to the flash-attention kernel K4.  MLA, the
+d_out) orientation and are used as ``x @ w``.  They are registered
+without gradients; training switches them on (``requires_grad_``).
+Every function here is differentiable: nothing writes in place into a
+tensor that autograd saved (the MoE's combine adds into a fresh zero
+tensor; only decode writes its caches in place, under ``no_grad``).
+Attention over long sequences is q-chunked; on a CUDA device
+self-attention under the reference's conditions goes to the
+flash-attention kernel K4.  MLA, the
 MoE's expert products and cross-attention are plain PyTorch, as the
 reference computes them outside any Pallas kernel.
 """
@@ -27,7 +32,8 @@ NEG_INF = -1e30
 class Params(nn.Module):
     """A named set of weights and sub-sets, read like the reference's
     parameter dicts: ``p[name]`` and ``name in p`` see both the tensors
-    (as non-trainable parameters) and the child modules."""
+    (parameters registered without gradients; training switches them on
+    with ``requires_grad_``) and the child modules."""
 
     def __init__(self, **entries):
         super().__init__()
@@ -135,8 +141,8 @@ def sdpa(q, k, v, q_pos, k_pos, *, causal=True, window=0, chunk=1024):
     ``Sq > chunk`` needs ``Sq % chunk == 0`` (raises ``ValueError`` where
     the reference's reshape fails).  On a CUDA device, self-attention
     (causal, no window, Sq == Sk, Sq % 128 == 0) goes to the
-    flash-attention kernel K4; the chunked path is the fallback and the
-    kernel's numerical reference."""
+    flash-attention kernel K4, whose output carries a gradient; the
+    chunked path is the fallback and the kernel's numerical reference."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -207,13 +213,17 @@ def attention_qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def attention_fwd(p, x, cfg: ModelConfig, positions, *, causal=True):
-    """Full-sequence attention without a cache (whisper's encoder)."""
+def attention_fwd(p, x, cfg: ModelConfig, positions, *, causal=True,
+                  project=True):
+    """Full-sequence attention without a cache (training, whisper's
+    encoder); ``project=False`` returns the concatenated head outputs
+    (for fused projections)."""
     B, S, _ = x.shape
     q, k, v = attention_qkv(p, x, cfg, positions)
     o = sdpa(q, k, v, positions[0], positions[0], causal=causal,
              window=cfg.attn_window)
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(x.dtype)
+    o = o.reshape(B, S, cfg.q_dim)
+    return o @ p["wo"].to(x.dtype) if project else o
 
 
 def attention_prefill(p, x, cfg: ModelConfig, positions, *,

@@ -1,5 +1,5 @@
 """Model assembly of every family (the JAX package's
-``models/transformer.py``), for serving.
+``models/transformer.py``): training and serving.
 
 * dense / moe / vlm: a :class:`DecoderLM` of decoder blocks (GQA or MLA
   attention, gated MLP or MoE);
@@ -15,28 +15,33 @@ Each model holds ``nn.ModuleList``s in place of the reference's
 ``lax.scan`` over stacked parameters.  Parameter names equal the
 reference's dict keys, so its path ``("blocks", "attn", "wq")[l]`` is the
 state-dict key ``blocks.{l}.attn.wq`` (``interop.params_from_reference``
-carries weights across).  Every family provides init, prefill and
-decode_step; decode writes caches and recurrent states IN PLACE and
-returns the ones given.  Training is not ported yet (ROADMAP Queue 1
-item 14).
+carries weights across).  Every family provides init, forward_train,
+prefill and decode_step; decode writes caches and recurrent states IN
+PLACE and returns the ones given.
+
+Training: ``forward_train`` returns (final hidden states, auxiliary
+loss) with autograd's graph; the reference's ``jax.checkpoint`` around
+each scanned block is ``torch.utils.checkpoint`` (non-reentrant) around
+each block (``_remat``), and :func:`lm_loss_from_hidden` is the
+sequence-chunked cross entropy.  The weights are registered without
+gradients: the training step switches them on.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.device import resolve_device
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
 from .layers import Params
-
-#: where the training step, not ported yet, stands
-_LATER = "ROADMAP Queue 1 item 14"
-
 
 def _f32_to(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Every f32 weight in ``dtype`` (as the reference's ``_f32_to``)."""
@@ -83,10 +88,6 @@ def _select(tree, *index):
     return tuple(_select(t, *index) for t in tree)
 
 
-def forward_train(params, inputs, cfg: ModelConfig, **_kw):
-    raise NotImplementedError(f"training is not ported yet ({_LATER})")
-
-
 # ======================================================================
 # Decoder block (attn/MLA + MLP/MoE) of dense/moe/vlm and whisper's decoder
 # ======================================================================
@@ -128,18 +129,21 @@ def _ffn(p, h, cfg: ModelConfig):
     return L.mlp_fwd(p["mlp"], h), 0.0
 
 
-def block_fwd(p, x, cfg: ModelConfig, positions, *, mode="prefill",
+def block_fwd(p, x, cfg: ModelConfig, positions, *, mode="train",
               cache=None, pos=None, enc_kv=None):
-    """mode: prefill | decode.  Returns (x, new_cache, aux): ``aux`` is
-    the MoE's load-balancing loss (0.0 without an MoE).  ``enc_kv``, the
-    encoder's (k, v), adds cross-attention after self-attention."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"block mode {mode!r} (training) is not "
-                                  f"ported yet ({_LATER})")
+    """mode: train | prefill | decode.  Returns (x, new_cache, aux):
+    ``new_cache`` is None in training, ``aux`` the MoE's load-balancing
+    loss (0.0 without an MoE).  ``enc_kv``, the encoder's (k, v), adds
+    cross-attention after self-attention."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"block mode {mode!r}: train, prefill or decode")
     h = L.apply_norm(p["ln1"], x)
     if "w_fused" in p:
         # fused parallel block: one contraction for both outputs
-        if mode == "prefill":
+        if mode == "train":
+            o = L.attention_fwd(p["attn"], h, cfg, positions, project=False)
+            new_cache = None
+        elif mode == "prefill":
             o, new_cache = L.attention_prefill(p["attn"], h, cfg, positions,
                                                project=False)
         else:
@@ -151,6 +155,10 @@ def block_fwd(p, x, cfg: ModelConfig, positions, *, mode="prefill",
     if cfg.mla:
         a, new_cache = L.mla_fwd(p["attn"], h, cfg, positions, cache=cache,
                                  pos=pos)
+        if mode == "train":
+            new_cache = None
+    elif mode == "train":
+        a, new_cache = L.attention_fwd(p["attn"], h, cfg, positions), None
     elif mode == "prefill":
         a, new_cache = L.attention_prefill(p["attn"], h, cfg, positions)
     else:
@@ -192,6 +200,72 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None,
                            lambda: init_block(cfg, gen, device))
     p["ln_f"] = L.init_norm(cfg, cfg.d_model, device)
     return _f32_to(p, getattr(torch, cfg.dtype))
+
+
+#: the products the ``"dots"`` policy saves: the weight contractions
+#: (``x @ w``) and the batched ones of attention and the MoE's experts
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = {
+    "full": None,   # recompute everything in the backward pass
+    # save the products: the backward pass does not replay the matmuls
+    "dots": _save_products,
+}
+
+
+def _remat(body, policy: str | None):
+    """``body`` under activation checkpointing: ``None`` keeps every
+    activation, ``"full"`` recomputes the whole body in the backward
+    pass (the reference's ``jax.checkpoint``), ``"dots"`` keeps the
+    products and recomputes the rest (its
+    ``dots_with_no_batch_dims_saveable``).  Any other name raises."""
+    if policy is None:
+        return body
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r}: one of "
+                         f"{sorted(REMAT_POLICIES)} or None")
+    save = REMAT_POLICIES[policy]
+    kw = {} if save is None else {"context_fn": partial(
+        create_selective_checkpoint_contexts, save)}
+    return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
+
+
+def lm_hidden(params, x, cfg: ModelConfig, positions, *, remat=True,
+              remat_policy: str | None = "full"):
+    """The decoder blocks over the embeddings ``x`` (B, S, d), each
+    block under ``_remat`` when ``remat``; returns (final-normed hidden
+    states, the summed MoE aux loss as an f32 scalar)."""
+    def body(h, bp):
+        h, _, a = block_fwd(bp, h, cfg, positions, mode="train")
+        return h, a
+
+    if remat:
+        body = _remat(body, remat_policy)
+    aux = torch.zeros((), device=x.device)
+    for bp in params["blocks"]:
+        x, a = body(x, bp)
+        aux = aux + a
+    return L.apply_norm(params["ln_f"], x), aux
+
+
+def lm_forward_train(params, tokens, cfg: ModelConfig, *, remat=True,
+                     prefix_embeds=None, remat_policy: str | None = "full"):
+    """tokens: (B, S) -> (hidden (B, P + S, d), aux); a vlm's
+    ``prefix_embeds`` (B, P, d) go before the tokens."""
+    B = tokens.shape[0]
+    x = L.embed(params["embed"], tokens, cfg)
+    if prefix_embeds is not None:   # vlm: precomputed patch embeddings
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    positions = _positions(B, x.shape[1], x.device)
+    return lm_hidden(params, x, cfg, positions, remat=remat,
+                     remat_policy=remat_policy)
 
 
 def lm_init_cache(cfg: ModelConfig, B: int, S_: int, dtype, device=None):
@@ -272,6 +346,22 @@ def _xlstm_pair_fwd(bp, x, cfg: ModelConfig, state=None):
     y, new_s = S.slstm_fwd(bp["slstm"], L.apply_norm(bp["ln_s"], x), cfg,
                            None if state is None else state[1])
     return x + y, (new_m, new_s)
+
+
+def xlstm_hidden(params, x, cfg: ModelConfig, *, remat=True):
+    """The (mLSTM, sLSTM) pairs over ``x``, each pair recomputed in the
+    backward pass when ``remat``; returns (hidden, 0.0 aux)."""
+    body = _remat(lambda h, bp: _xlstm_pair_fwd(bp, h, cfg)[0],
+                  "full" if remat else None)
+    for bp in params["pairs"]:
+        x = body(x, bp)
+    return L.apply_norm(params["ln_f"], x), torch.zeros((), device=x.device)
+
+
+def xlstm_forward_train(params, tokens, cfg: ModelConfig, *, remat=True,
+                        prefix_embeds=None):
+    x = L.embed(params["embed"], tokens, cfg)
+    return xlstm_hidden(params, x, cfg, remat=remat)
 
 
 def xlstm_init_state(cfg: ModelConfig, B: int, dtype, device=None):
@@ -374,6 +464,35 @@ def _hybrid_layers(params, cfg: ModelConfig):
         yield i // period, i % period, ip
 
 
+def hybrid_hidden(params, x, cfg: ModelConfig, positions, *, remat=True):
+    """Super-blocks of ``period`` Mamba2 layers, each followed by the
+    shared attention block, one super-block recomputed in the backward
+    pass when ``remat``; returns (hidden, 0.0 aux)."""
+    period, scfg = cfg.hybrid.period, _hybrid_shared_cfg(cfg)
+    layers = list(params["mamba"])
+
+    def super_body(h, *block):
+        for ip in block:
+            y, _ = S.mamba2_fwd(ip["mamba"], L.apply_norm(ip["ln"], h), cfg)
+            h = h + y
+        h, _, _ = block_fwd(params["shared"], h, scfg, positions,
+                            mode="train")
+        return h
+
+    super_body = _remat(super_body, "full" if remat else None)
+    for s in range(0, len(layers), period):
+        x = super_body(x, *layers[s:s + period])
+    return L.apply_norm(params["ln_f"], x), torch.zeros((), device=x.device)
+
+
+def hybrid_forward_train(params, tokens, cfg: ModelConfig, *, remat=True,
+                         prefix_embeds=None):
+    B, S_ = tokens.shape
+    x = L.embed(params["embed"], tokens, cfg)
+    return hybrid_hidden(params, x, cfg, _positions(B, S_, x.device),
+                         remat=remat)
+
+
 @torch.no_grad()
 def hybrid_prefill(params, tokens, cfg: ModelConfig, S_max: int):
     """tokens: (B, S) -> (logits of the last position, the state of
@@ -448,10 +567,10 @@ def init_encdec(cfg: ModelConfig, generator: torch.Generator | None,
     return _f32_to(p, getattr(torch, cfg.dtype))
 
 
-@torch.no_grad()
 def encode(params, frames, cfg: ModelConfig):
     """frames: precomputed frame embeddings (B, S_enc, d), the stub
-    frontend; non-causal self-attention."""
+    frontend; non-causal self-attention.  Differentiable: training's
+    gradient reaches the encoder through it."""
     B, Se, _ = frames.shape
     positions = _positions(B, Se, frames.device)
     x = frames.to(getattr(torch, cfg.dtype))
@@ -460,6 +579,26 @@ def encode(params, frames, cfg: ModelConfig):
                                 positions, causal=False)
         x = x + L.mlp_fwd(bp["mlp"], L.apply_norm(bp["ln2"], x))
     return L.apply_norm(params["ln_enc"], x)
+
+
+def encdec_forward_train(params, batch, cfg: ModelConfig, *, remat=True):
+    """batch: (frames (B, S_enc, d), decoder tokens (B, S)) -> (decoder
+    hidden, 0.0 aux); each decoder block recomputed in the backward pass
+    when ``remat`` (the encoder is not, as in the reference)."""
+    frames, dec_tokens = batch
+    enc_out = encode(params, frames, cfg)
+    B, Sd = dec_tokens.shape
+    positions = _positions(B, Sd, enc_out.device)
+    x = L.embed(params["embed"], dec_tokens, cfg)
+
+    def body(h, bp):
+        kv = L.encode_kv(bp["xattn"], enc_out, cfg)
+        return block_fwd(bp, h, cfg, positions, mode="train", enc_kv=kv)[0]
+
+    body = _remat(body, "full" if remat else None)
+    for bp in params["dec"]:
+        x = body(x, bp)
+    return L.apply_norm(params["ln_f"], x), torch.zeros((), device=x.device)
 
 
 @torch.no_grad()
@@ -504,12 +643,35 @@ def encdec_decode_step(params, token, cache, pos, cfg: ModelConfig):
 
 
 # ======================================================================
+# Loss: sequence-chunked cross entropy
+# ======================================================================
+def lm_loss_from_hidden(params, hidden, targets, cfg: ModelConfig,
+                        chunk: int = 512):
+    """hidden: (B, S, d); targets: (B, S) -> the mean cross entropy, f32.
+    Walks chunks of the sequence (the largest divisor of S not above
+    ``chunk``), so the f32 logits of one chunk are live at a time in
+    the forward pass."""
+    B, Sq, _ = hidden.shape
+    chunk = min(chunk, Sq)
+    while Sq % chunk:       # largest divisor of Sq not above the target
+        chunk -= 1
+    total = torch.zeros((), device=hidden.device)
+    for c0 in range(0, Sq, chunk):
+        logits = L.lm_logits(params["embed"], hidden[:, c0:c0 + chunk],
+                             cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, targets[:, c0:c0 + chunk, None].long())[..., 0]
+        total = total + (lse - ll).sum()
+    return total / (B * Sq)
+
+
+# ======================================================================
 # Family dispatch
 # ======================================================================
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init: Any               # (cfg, generator, device) -> module
-    forward_train: Any      # not ported yet: raises
+    forward_train: Any      # (params, inputs, cfg) -> (hidden, aux)
     prefill: Any            # (params, inputs, cfg, S_max) -> (logits, cache)
     decode_step: Any        # (params, token, cache, pos, cfg)
     #: the batch axis of each leaf of the cache, as a tree of ints
@@ -519,12 +681,12 @@ class ModelApi:
 
 def get_api(cfg: ModelConfig) -> ModelApi:
     if cfg.enc_dec:
-        return ModelApi(init_encdec, forward_train, encdec_prefill,
+        return ModelApi(init_encdec, encdec_forward_train, encdec_prefill,
                         encdec_decode_step, ((1, 1), (1, 1)))
     if cfg.family == "ssm":
-        return ModelApi(init_xlstm, forward_train, xlstm_prefill,
+        return ModelApi(init_xlstm, xlstm_forward_train, xlstm_prefill,
                         xlstm_decode_step, ((1, 1), (1, 1, 1, 1)))
     if cfg.family == "hybrid":
-        return ModelApi(init_hybrid, forward_train, hybrid_prefill,
+        return ModelApi(init_hybrid, hybrid_forward_train, hybrid_prefill,
                         hybrid_decode_step, ((2, 2), (1, 1)))
-    return ModelApi(init_lm, forward_train, lm_prefill, lm_decode_step)
+    return ModelApi(init_lm, lm_forward_train, lm_prefill, lm_decode_step)

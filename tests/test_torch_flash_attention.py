@@ -10,6 +10,14 @@ chunked ``sdpa`` at the reference's own tolerances (1e-5, 2e-5).  It
 raises where the reference asserts, and CPU tensors never launch the
 kernel.  The CUDA kernel itself is held to the plain version by the
 ``gpu``-marked tests below and by ``chip_smoke.py``.
+
+The gradient: ``flash_attention_backward``, the backward of the
+kernel's autograd Function, equals autograd through
+``flash_attention_plain`` and through the chunked ``sdpa`` on the same
+inputs (f32, GQA, S 128 and 256, 1e-5 of each gradient's largest
+magnitude), and the Function wires it in (its launch replaced by the
+plain forward, detached as the kernel's output is).  On the card, K4's
+dq, dk and dv are held to autograd through its plain version.
 """
 import numpy as np
 import pytest
@@ -132,6 +140,52 @@ def test_heads_must_group():
     _, (tq, tk, tv) = _case(1, 32, 6, 4, 16, "float32", 2)
     with pytest.raises(ValueError, match="multiple"):
         flash_attention(tq, tk, tv)
+
+
+def _grads(fn, xs, dout):
+    """(dq, dk, dv) of ``(fn(*xs) * dout).sum()`` by autograd."""
+    xs = [x.detach().clone().requires_grad_(True) for x in xs]
+    (fn(*xs) * dout).sum().backward()
+    return [x.grad for x in xs]
+
+
+def _grad_err(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [128, 256])
+@pytest.mark.parametrize("H,KV", [(4, 2), (4, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_matches_autograd(S, H, KV, causal):
+    _, xs = _case(2, S, H, KV, 32, "float32", S + H + KV)
+    dout = torch.from_numpy(np.random.default_rng(S).normal(
+        size=(2, S, H, 32)).astype(np.float32))
+    got = ops.flash_attention_backward(*xs, dout, causal=causal, chunk=96)
+    assert [g.dtype for g in got] == [torch.float32] * 3
+    assert [tuple(g.shape) for g in got] == [tuple(x.shape) for x in xs]
+    plain = _grads(lambda q, k, v: flash_attention_plain(
+        q, k, v, bq=64, bk=64, causal=causal), xs, dout)
+    assert _grad_err(got, plain) <= 1e-5
+    pos = torch.arange(S)
+    chunked = _grads(lambda q, k, v: sdpa(q, k, v, pos, pos, causal=causal,
+                                          chunk=64), xs, dout)
+    assert _grad_err(got, chunked) <= 1e-5
+
+
+def test_function_carries_the_gradient(monkeypatch):
+    """The autograd Function around the launch: its forward is the
+    launch (here the plain version, detached as the kernel's output
+    is), its backward ``flash_attention_backward``."""
+    monkeypatch.setattr(ops, "_launch", lambda q, k, v, causal: (
+        flash_attention_plain(q, k, v, causal=causal).detach()))
+    _, xs = _case(1, 128, 4, 2, 16, "float32", 5)
+    dout = torch.randn((1, 128, 4, 16), generator=torch.Generator()
+                       .manual_seed(0))
+    got = _grads(lambda q, k, v: ops._FlashAttention.apply(q, k, v, True),
+                 xs, dout)
+    want = _grads(flash_attention_plain, xs, dout)
+    assert _grad_err(got, want) <= 1e-5
 
 
 # ----------------------------------------------------------------------
@@ -264,3 +318,36 @@ def test_cuda_bf16_inputs_it_cannot_take_raise():
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
     torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV", [(14, 2), (8, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [128, 512])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_kernel_gradient_matches_plain(dtype, D, S, causal, H, KV):
+    """On the card: an input that requires grad gets a K4 output with a
+    gradient; dq, dk and dv equal autograd through the plain version on
+    the same inputs (f32: 1e-5 of each gradient's largest magnitude;
+    bf16: the plain version in f32 on the bf16 inputs, 1e-2, the
+    rounding of dq, dk and dv to bf16)."""
+    dev = _cuda_or_skip()
+    _, xs = _case(2, S, H, KV, D, dtype, D + S + H)
+    xs = [x.to(dev).requires_grad_(True) for x in xs]
+    dout = torch.randn((2, S, H, D), device=dev,
+                       generator=torch.Generator(dev).manual_seed(S))
+    before = ops.flash_attention.launches
+    out = flash_attention(*xs, causal=causal)
+    assert out.grad_fn is not None
+    (out * dout).sum().backward()
+    assert ops.flash_attention.launches == before + 1
+    got = [x.grad for x in xs]
+    assert [g.dtype for g in got] == [x.dtype for x in xs]
+    ref = [x.detach().float() for x in xs]
+    want = _grads(lambda q, k, v: flash_attention_plain(q, k, v,
+                                                        causal=causal),
+                  ref, dout)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _grad_err(got, want) <= (1e-5 if dtype == "float32" else 1e-2)

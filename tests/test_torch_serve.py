@@ -130,15 +130,29 @@ def test_params_from_reference_raises(fault):
 
 
 def test_unported_families_raise():
-    """Every family serves (``get_api`` gives each its prefill and decode)
-    and training, the part not ported yet, raises for every family."""
+    """Every family serves and trains (``get_api`` gives each its
+    prefill, decode and ``forward_train``: (hidden (B, S, d), f32 aux) on
+    the CPU); what is not ported yet, mesh sharding, raises naming its
+    ROADMAP item."""
+    from repro_torch.launch.steps import SHAPES, input_specs
+    from repro_torch.runtime import elastic_mesh
     for arch in ("qwen2-0.5b", "llama4-scout-17b-a16e",
                  "deepseek-v2-lite-16b", "xlstm-350m", "zamba2-7b",
                  "internvl2-76b", "whisper-base"):
-        api = get_api(get_config(arch, reduced=True))
+        cfg = get_config(arch, reduced=True)
+        api = get_api(cfg)
         assert callable(api.prefill) and callable(api.decode_step)
+        model = api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 8))
+        inputs = (torch.randn(2, 16, cfg.d_model), toks) if cfg.enc_dec \
+            else toks
+        hidden, aux = api.forward_train(model, inputs, cfg)
+        assert tuple(hidden.shape) == (2, 8, cfg.d_model)
+        assert bool(torch.isfinite(hidden).all()) and aux.dim() == 0
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.forward_train(None, None, None)
+            input_specs(cfg, SHAPES["train_4k"], None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        elastic_mesh()
 
 
 # ----------------------------------------------------------------------
