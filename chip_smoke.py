@@ -133,24 +133,48 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    the restart contract on the reduced configuration (10 steps with a
    checkpoint every 5, the same command to 16: 6 steps, the last loss
    below the first run's first);
-15. serve check: the card's prefill logits and KV cache against the
+15. dry run: ``launch/dryrun.run_cell`` on qwen2-0.5b x train_4k,
+   prefill_32k and decode_32k on the single-pod (16 x 16) mesh,
+   train_4k on the multi-pod (2 x 16 x 16) mesh, and
+   deepseek-v2-lite-16b x train_4k single-pod, one process per cell
+   (CPU only: the fake process group of 256 or 512 ranks, DTensors on
+   the meta device, no kernel); each cell's per-rank dot FLOPs and
+   bytes, collective GiB by kind, peak bytes, seconds and
+   ``roofline.cell_roofline``; qwen2's four cells must be ``ok``;
+16. counted step: one warm step of phase 14's cell under
+   ``launch/costanalysis.CostMode`` on the card (K4 counted by its
+   FLOP formula, 48 launches) and the same step at world size 1 on the
+   meta device (attention as plain products); with the attention
+   products taken out of both, the counts must be equal; the roofline
+   bound of the card's count against the measured warm step;
+17. mesh train: the train CLI on a one-rank NCCL (1, 1) ``DeviceMesh``
+   (qwen2-0.5b full width, depth 2, f32, batch 2 x 512, 3 steps): the
+   losses within 1e-6 of the same steps with no mesh and K4 launched as
+   often; then its checkpoint restored with ``shardings=`` onto the
+   mesh and one more step;
+18. compression: ``runtime.compressed_grad_allreduce`` on a one-rank
+   NCCL group over qwen2-0.5b's full gradient tree (one backward of
+   phase 14's cell, the leaves in f32): every leaf within 1.01 quanta,
+   the mean of 30 draws of one leaf within 0.2 quanta; its ms against a
+   plain ``all_reduce`` of the same tree;
+19. serve check: the card's prefill logits and KV cache against the
    port's CPU path on the same weights (full width, 2 layers, f32,
    prompt 128, so K4 runs in f32 on the card);
-16. families check: each family's prefill logits, caches or states and
+20. families check: each family's prefill logits, caches or states and
    one decode step on the card against the port's CPU path on the same
    weights in f32 (1e-4 of the largest magnitude): depth 2 (zamba2: one
    super-block of 6), full width for deepseek, xlstm, zamba2 and
    whisper, the reduced configurations of llama4 and internvl2;
-17. train check: training on the card against the port's CPU path in
+21. train check: training on the card against the port's CPU path in
    f32 on the same weights and batch: the loss (1e-5 relative), every
    gradient and every parameter after one AdamW step (1e-4 of each
    leaf's largest magnitude); qwen2-0.5b at full width and depth 2, the
    other nine configurations reduced, batch 2, seq 128, K4 asserted
    where a family reaches it;
-18. profile: where one warm engine evaluation of a ResNet50 layer's
+22. profile: where one warm engine evaluation of a ResNet50 layer's
    mapspace goes on the card.
 
-Phases 4-14 are the main path: before each, every kernel's launch
+Phases 4-18 are the main path: before each, every kernel's launch
 counter is set to 0, and it is read right after.  The last lines are
 the ``kernels`` JSON object, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -167,6 +191,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.launch import roofline as _roofline  # noqa: E402
 
 #: qwen2-0.5b (hidden 896, intermediate 4864, vocab 151936), decode at
 #: batch 8: the two largest weight matmuls, as (layer, M, K, N)
@@ -331,8 +358,11 @@ ISLANDS, ISLAND_GENS, ISLAND_MIGRATE = 4, 16, 4
 #: the validation phase: refsim against the engine at these cube sides,
 #: on this many of each side's Table-5 tilings
 REFSIM_SIDES, REFSIM_SAMPLES = (32, 64), 8
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+#: the H100 SXM datasheet's rates, from the one place the port keeps
+#: them (``launch/roofline.py``)
+HBM_BYTES_PER_S = _roofline.HBM_BW
+PEAK_OPS = {torch.float32: _roofline.PEAK_FLOPS_F32,
+            torch.bfloat16: _roofline.PEAK_FLOPS}
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -2112,7 +2142,8 @@ def phase_train(device="cuda", arch=TRAIN["arch"], reduced=False,
     before = flash_attention.launches
     t0 = time.perf_counter()
     out = train.main(["--arch", arch, "--steps", str(steps), "--batch",
-                      str(batch), "--seq", str(seq), "--log-every", "10"]
+                      str(batch), "--seq", str(seq), "--log-every", "10",
+                      "--mesh", "none"]
                      + (["--reduced"] if reduced else []) + dev_args)
     wall = time.perf_counter() - t0
     launched = flash_attention.launches - before
@@ -2120,7 +2151,7 @@ def phase_train(device="cuda", arch=TRAIN["arch"], reduced=False,
     step_ms = np.asarray(out["step_s"]) * 1e3
     warm_ms = float(np.median(step_ms[1:]))
     tokens = batch * seq
-    n_params = sum(p.numel() for p in abstract_params(cfg).parameters())
+    n_params = sum(p.numel() for p in abstract_params(cfg)[0].parameters())
     attn = 3 * cfg.num_layers * 4 * batch * cfg.num_heads * cfg.head_dim \
         * seq * (seq + 1) / 2
     flops = 6 * n_params * tokens + attn
@@ -2175,7 +2206,7 @@ def phase_train(device="cuda", arch=TRAIN["arch"], reduced=False,
     shutil.rmtree(ck, ignore_errors=True)
     base = ["--arch", arch, "--reduced", "--batch", str(restart["batch"]),
             "--seq", str(restart["seq"]), "--ckpt-dir", str(ck),
-            "--ckpt-every", str(restart["every"])] + dev_args
+            "--ckpt-every", str(restart["every"]), "--mesh", "none"] + dev_args
     before = flash_attention.launches
     first = train.main(base + ["--steps", str(restart["steps"])])
     second = train.main(base + ["--steps", str(restart["resume_to"])])
@@ -2195,6 +2226,280 @@ def phase_train(device="cuda", arch=TRAIN["arch"], reduced=False,
                              f"{row['restart']}")
     if row["restart"]["k4_launches"] != want:
         raise AssertionError(f"train: restart K4 launches {row['restart']}")
+    return row
+
+
+#: the dry-run phase's cells: (arch, shape, mesh); qwen2's must be ok
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", "single"),
+                ("qwen2-0.5b", "prefill_32k", "single"),
+                ("qwen2-0.5b", "decode_32k", "single"),
+                ("qwen2-0.5b", "train_4k", "multi"),
+                ("deepseek-v2-lite-16b", "train_4k", "single"))
+#: the mesh-train phase: the train CLI at full width, cut in depth, f32
+MESH_TRAIN = dict(arch="qwen2-0.5b", layers=2, dtype="float32", batch=2,
+                  seq=512, steps=3)
+#: the compression phase: draws of one leaf for the bias
+COMPRESS_DRAWS = 30
+
+
+def _dryrun_cell(cell_and_overrides) -> dict:
+    """One dry-run cell in a process of its own (the fake process group
+    is per process)."""
+    (arch, shape, mesh), overrides = cell_and_overrides
+    sys.path.insert(0, str(_root() / "src"))
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, shape, mesh, verbose=False,
+                          cfg_overrides=overrides)
+    rec.pop("trace", None)
+    return rec
+
+
+def phase_dryrun(cells=DRYRUN_CELLS, cfg_overrides=None) -> list:
+    """The dry run of ``cells``, each in its own process, all at once,
+    on the CPU: the fake process group of the mesh's
+    ranks, DTensors on the meta device.  Prints each cell's per-rank dot
+    FLOPs and bytes, collective GiB by kind, peak bytes, seconds and its
+    roofline; qwen2-0.5b's cells must be ``ok``."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch import roofline
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(cells),
+                             mp_context=mp.get_context("spawn")) as ex:
+        recs = list(ex.map(_dryrun_cell,
+                           [(c, cfg_overrides) for c in cells]))
+    rows = []
+    for rec in recs:
+        row = {k: rec.get(k) for k in ("arch", "shape", "mesh", "ranks",
+                                       "status", "dot_flops", "dot_bytes",
+                                       "world1_dot_flops", "gathered_ops",
+                                       "where", "error")}
+        if rec["status"] == "ok":
+            row["collective_gib"] = {
+                k: v / 2 ** 30 for k, v in rec["collectives"].items()
+                if k != "count" and v}
+            row["collective_count"] = rec["collectives"]["count"]
+            row["peak_bytes"] = rec["memory"]["peak_bytes"]
+            row["argument_bytes"] = rec["memory"]["argument_bytes"]
+            row["seconds"] = rec["place_s"] + rec["run_s"]
+            row["replicated_flops_share"] = (
+                1 - rec["world1_dot_flops"]
+                / (rec["dot_flops"] * rec["ranks"])
+                if rec["world1_dot_flops"] else None)
+            row["roofline"] = roofline.cell_roofline(rec)
+        row["error"] = (row["error"] or "")[:300] or None
+        print(f"[dryrun] {json.dumps(row)}")
+        rows.append(row)
+    bad = [r for r in rows if r["arch"] == "qwen2-0.5b"
+           and r["status"] != "ok"]
+    if bad:
+        raise AssertionError(f"dryrun: qwen2 cells not ok: {bad}")
+    for r in rows:
+        if r["status"] == "ok" and r["world1_dot_flops"] and \
+                r["dot_flops"] * r["ranks"] < r["world1_dot_flops"]:
+            raise AssertionError(f"dryrun: per-rank FLOPs x ranks below "
+                                 f"the world-1 count: {r}")
+    print(f"[dryrun] {len(rows)} cells in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_counted_step(device="cuda", arch=TRAIN["arch"],
+                       batch=TRAIN["batch"], seq=TRAIN["seq"],
+                       reduced=False) -> dict:
+    """One warm step of phase 14's training cell counted on the card by
+    ``CostMode`` and at world size 1 on the meta device
+    (``dryrun.world1_costs``).  Attention is K4 on the card (counted by
+    its formula) and its plain-PyTorch backward, batched products on
+    meta: with ``flash_attention`` and ``bmm`` taken out of both, the
+    dot FLOPs and bytes must be equal.  The roofline bound of the card's
+    count (its dot FLOPs over the bf16 peak, its dot bytes over HBM)
+    against the measured warm step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.costanalysis import CostMode
+    from repro_torch.launch.steps import ShapeSpec, make_train_step
+    from repro_torch.models import get_api
+    from repro_torch.optim import adamw_init
+    cfg = get_config(arch, reduced=reduced)
+    on_card = device != "cpu"
+    _free(device)
+    model = get_api(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    opt = adamw_init(model)
+    step = make_train_step(cfg, lr=1e-3)
+    pipe = make_pipeline(cfg, seq, batch, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in next(pipe).items()} for _ in range(4)]
+    for b in batches[:2]:                                 # warm
+        float(step(model, opt, b)[2]["loss"])
+    _sync(device)
+    t0 = time.perf_counter()
+    float(step(model, opt, batches[2])[2]["loss"])
+    _sync(device)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    before = flash_attention.launches
+    with CostMode() as cm:
+        float(step(model, opt, batches[3])[2]["loss"])
+    launched = flash_attention.launches - before
+    card = cm.costs
+    meta = dryrun.world1_costs(cfg, ShapeSpec("train", "train", seq, batch))
+    attn_card = ("flash_attention", "bmm")
+    f_card, b_card = card.without(*attn_card)
+    f_meta, b_meta = meta.without("bmm")
+    bound_s = max(card.dot_flops / roofline.PEAK_FLOPS,
+                  card.dot_bytes / roofline.HBM_BW)
+    row = {"arch": cfg.name, "batch": batch, "seq": seq,
+           "card": {"dot_flops": card.dot_flops, "dot_bytes": card.dot_bytes,
+                    "by_op": {k: v for k, v in card.by_op.items()}},
+           "meta": {"dot_flops": meta.dot_flops, "dot_bytes": meta.dot_bytes,
+                    "by_op": {k: v for k, v in meta.by_op.items()}},
+           "no_attention": {"card": [f_card, b_card],
+                            "meta": [f_meta, b_meta]},
+           "k4_launches": launched, "warm_step_ms": warm_ms,
+           "bound_ms": bound_s * 1e3,
+           "measured_over_bound": warm_ms / (bound_s * 1e3)}
+    print(f"[counted] {json.dumps(row)}")
+    want = 2 * _k4_applications(cfg, seq) if on_card else 0
+    if launched != want:
+        raise AssertionError(f"counted: K4 launched {launched}, want {want}")
+    if on_card and "flash_attention" not in card.by_op:
+        raise AssertionError("counted: K4 was not counted on the card")
+    if (f_card, b_card) != (f_meta, b_meta):
+        raise AssertionError(f"counted: the card's count without attention "
+                             f"{(f_card, b_card)} differs from the meta "
+                             f"device's {(f_meta, b_meta)}")
+    del model, opt
+    _free(device)
+    return row
+
+
+def phase_mesh_train(device="cuda", cell=MESH_TRAIN) -> dict:
+    """The train CLI on the one-rank (1, 1) ``DeviceMesh`` (NCCL on the
+    card) against the same steps with no mesh: the losses within 1e-6
+    and K4 launched as often.  Then the mesh run's checkpoint restored
+    with ``shardings=`` onto the mesh (the CLI's resume) and one more
+    step.  Step ms of both."""
+    import shutil
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import train
+    ck = _root() / "chiprun_out" / "mesh_train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    def base(steps):
+        return (["--arch", cell["arch"], "--layers", str(cell["layers"]),
+                 "--dtype", cell["dtype"], "--batch", str(cell["batch"]),
+                 "--seq", str(cell["seq"]), "--steps", str(steps),
+                 "--log-every", "1"]
+                + ([] if device == "cuda" else ["--device", str(device)]))
+
+    runs = {}
+    for mesh in ("none", "debug"):
+        _free(device)
+        before = flash_attention.launches
+        extra = ["--ckpt-dir", str(ck)] if mesh == "debug" else []
+        out = train.main(base(cell["steps"]) + ["--mesh", mesh] + extra)
+        runs[mesh] = {"losses": out["losses"],
+                      "step_ms": [t * 1e3 for t in out["step_s"]],
+                      "k4_launches": flash_attention.launches - before}
+    before = flash_attention.launches
+    resumed = train.main(base(cell["steps"] + 1)
+                         + ["--mesh", "debug", "--ckpt-dir", str(ck)])
+    shutil.rmtree(ck, ignore_errors=True)
+    diff = max(abs(a - b) for a, b in zip(runs["none"]["losses"],
+                                          runs["debug"]["losses"]))
+    row = {"cell": cell, "runs": runs, "max_loss_diff": diff,
+           "resumed_losses": resumed["losses"],
+           "resumed_k4_launches": flash_attention.launches - before}
+    print(f"[mesh_train] {json.dumps(row)}")
+    if diff > 1e-6:
+        raise AssertionError(f"mesh_train: losses differ by {diff}")
+    if runs["none"]["k4_launches"] != runs["debug"]["k4_launches"]:
+        raise AssertionError(f"mesh_train: K4 launches differ: {runs}")
+    if len(resumed["losses"]) != 1 or not np.isfinite(resumed["losses"][0]):
+        raise AssertionError(f"mesh_train: the resharded restore did not "
+                             f"step: {resumed}")
+    return row
+
+
+def phase_compression(device="cuda", arch=TRAIN["arch"],
+                      batch=TRAIN["batch"], seq=TRAIN["seq"], reduced=False,
+                      draws=COMPRESS_DRAWS) -> dict:
+    """``compressed_grad_allreduce`` on a one-rank group (NCCL on the
+    card) over the full gradient tree of one backward of phase 14's cell,
+    the leaves in f32: every leaf within 1.01 quanta (amax / 127), and
+    the mean of ``draws`` draws of the largest leaf within 0.2 quanta of
+    it (its mean absolute bias).  ms of the compressed reduce against a
+    plain ``all_reduce`` of the same tree."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_loss_fn
+    from repro_torch.models import get_api
+    from repro_torch.runtime import compressed_grad_allreduce
+    cfg = get_config(arch, reduced=reduced)
+    _free(device)
+    model = get_api(cfg).init(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    batch_t = {k: torch.from_numpy(v).to(device) for k, v in
+               next(make_pipeline(cfg, seq, batch, seed=SEED)).items()}
+    model.requires_grad_(True)
+    make_loss_fn(cfg)(model, batch_t).backward()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    del model
+    _free(device)
+    backend = "nccl" if device != "cpu" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh(torch.device(device).type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        compressed_grad_allreduce(grads, mesh, generator=gen)   # warm
+        _sync(device)
+        t0 = time.perf_counter()
+        out = compressed_grad_allreduce(grads, mesh, generator=gen)
+        _sync(device)
+        comp_ms = (time.perf_counter() - t0) * 1e3
+
+        def plain():
+            res = {n: g.clone() for n, g in grads.items()}
+            for g in res.values():
+                dist.all_reduce(g)
+            return res
+
+        plain()
+        _sync(device)
+        t0 = time.perf_counter()
+        plain()
+        _sync(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        worst = max(float((out[n] - g).abs().max())
+                    / max(float(g.abs().max()) / 127.0, 1e-30)
+                    for n, g in grads.items())
+        name = max(grads, key=lambda n: grads[n].numel())
+        g = grads[name]
+        acc = torch.zeros_like(g, dtype=torch.float64)
+        for i in range(draws):
+            acc += compressed_grad_allreduce(
+                [g], mesh, generator=torch.Generator(device=device)
+                .manual_seed(i))[0].double() / draws
+        bias = float((acc - g.double()).abs().mean()) / (
+            float(g.abs().max()) / 127.0)
+    finally:
+        dist.destroy_process_group()
+    row = {"leaves": len(grads), "elements": sum(g.numel()
+                                                 for g in grads.values()),
+           "worst_error_quanta": worst, "bias_leaf": name,
+           "bias_quanta": bias, "draws": draws, "compressed_ms": comp_ms,
+           "plain_allreduce_ms": plain_ms}
+    print(f"[compression] {json.dumps(row)}")
+    if worst > 1.01:
+        raise AssertionError(f"compression: a leaf is {worst} quanta off")
+    if bias >= 0.2:
+        raise AssertionError(f"compression: bias {bias} quanta")
     return row
 
 
@@ -2402,6 +2707,10 @@ def main() -> int:
     serve = main_path("serve", phase_serve)
     families = main_path("families", phase_families)
     train = main_path("train", phase_train)
+    dryrun = main_path("dryrun", phase_dryrun)
+    counted = main_path("counted", phase_counted_step)
+    mesh_train = main_path("mesh_train", phase_mesh_train)
+    compression = main_path("compression", phase_compression)
     launches = {k: sum(p[k] for p in per_phase.values()) for k in counters}
     print(f"[main path] launches per phase {json.dumps(per_phase)}")
     if not all(launches.values()):
@@ -2434,6 +2743,8 @@ def main() -> int:
                "fleet": fleet, "serve": serve,
                "serve_check": serve_check, "families": families,
                "families_check": families_check, "train": train,
+               "dryrun": dryrun, "counted": counted,
+               "mesh_train": mesh_train, "compression": compression,
                "train_check": train_check, "profile": profile,
                "main_path": per_phase,
                "agreement": [r.as_dict() for r in rows],

@@ -22,7 +22,11 @@ Layout:  <dir>/step_<N>/
   latest checkpoint; a stray ``.tmp_step_*`` directory is never read.
 * ``load_checkpoint`` restores into a given module (its parameters
   replaced, on the requested device) and rebuilds the other leaves
-  there.
+  there.  With ``shardings`` (a tree of DTensor placements, as
+  ``launch.sharding.sharding_tree`` gives, and the ``mesh``) each leaf
+  it names is placed as a DTensor: the reference's resharding restore.
+  Checkpoints hold whole tensors, so one saved from any mesh (or none)
+  restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -60,6 +64,8 @@ def _host(leaf) -> np.ndarray:
     """A host copy of one leaf (never a view of the caller's memory)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if hasattr(t, "full_tensor"):   # a DTensor: its whole value
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()               # npz has no bf16; exact
         return t.to("cpu", copy=True).numpy()
@@ -116,11 +122,24 @@ def latest_step(directory: str | pathlib.Path) -> int | None:
         return None
 
 
-def _restore(tree, data, prefix: str, device):
+def _sub(shardings, key):
+    """The part of a shardings tree for child ``key`` (None: none)."""
+    if shardings is None:
+        return None
+    if dataclasses.is_dataclass(shardings):
+        return getattr(shardings, key, None)
+    if isinstance(shardings, dict):
+        return shardings.get(key)
+    return shardings[key]
+
+
+def _restore(tree, data, prefix: str, device, shardings=None, mesh=None):
     """``tree`` with every leaf read from ``data`` onto ``device`` in the
-    leaf's dtype; a module is filled in place and returned."""
+    leaf's dtype, placed by ``shardings`` on ``mesh`` where that names
+    it; a module is filled in place and returned."""
     if isinstance(tree, nn.Module):
-        state = {k: _restore(v, data, _join(prefix, k), device)
+        state = {k: _restore(v, data, _join(prefix, k), device,
+                             _sub(shardings, k), mesh)
                  for k, v in tree.state_dict().items()}
         tree.load_state_dict(state, strict=True, assign=True)
         return tree
@@ -128,9 +147,14 @@ def _restore(tree, data, prefix: str, device):
     if kids is None:
         arr = data[prefix]
         if isinstance(tree, torch.Tensor):
-            return torch.from_numpy(arr).to(device=device, dtype=tree.dtype)
+            t = torch.from_numpy(arr).to(device=device, dtype=tree.dtype)
+            if shardings is not None:
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(t, mesh, shardings)
+            return t
         return arr.astype(np.asarray(tree).dtype)
-    out = {k: _restore(v, data, _join(prefix, k), device) for k, v in kids}
+    out = {k: _restore(v, data, _join(prefix, k), device,
+                       _sub(shardings, k), mesh) for k, v in kids}
     if dataclasses.is_dataclass(tree):
         return type(tree)(**out)
     if isinstance(tree, dict):
@@ -139,13 +163,17 @@ def _restore(tree, data, prefix: str, device):
 
 
 def load_checkpoint(directory: str | pathlib.Path, tree,
-                    step: int | None = None, *, device) -> tuple[object, dict]:
+                    step: int | None = None, *, device, shardings=None,
+                    mesh=None) -> tuple[object, dict]:
     """Restore the checkpoint of ``step`` (default: ``LATEST``) into the
     structure of ``tree`` on ``device``: each leaf takes its dtype from
     ``tree`` (tensors on the meta device describe it without memory), a
-    module's parameters are replaced by the stored ones.  Returns (the
-    restored tree, the saved ``extra``).  A key missing from the file
-    raises ``KeyError``."""
+    module's parameters are replaced by the stored ones.  ``shardings``
+    is a tree shaped like ``tree`` (a module: {state-dict name:
+    placements}; an ``AdamWState``: a dict of its fields) whose leaves
+    are DTensor placements on ``mesh`` or None: each leaf it places is
+    restored as a DTensor.  Returns (the restored tree, the saved
+    ``extra``).  A key missing from the file raises ``KeyError``."""
     directory = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -154,7 +182,8 @@ def load_checkpoint(directory: str | pathlib.Path, tree,
     d = directory / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
     with np.load(d / "arrays.npz") as data:
-        restored = _restore(tree, data, "", torch.device(device))
+        restored = _restore(tree, data, "", torch.device(device),
+                            shardings, mesh)
     return restored, manifest["extra"]
 
 
@@ -171,10 +200,16 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def save_async(self, step: int, tree, extra: dict | None = None):
+    def save_async(self, step: int, tree, extra: dict | None = None,
+                   write: bool = True):
+        """Snapshot ``tree`` to host memory now and write it in a thread.
+        Every rank of a sharded run calls it (a DTensor's whole value is
+        gathered), and only the one given ``write`` writes."""
         self.wait()
         # copy to host memory BEFORE backgrounding (snapshot semantics)
         flat = _flatten(tree)
+        if not write:
+            return
 
         def work():
             _write(self.dir, step, flat, extra)

@@ -7,9 +7,13 @@ tensor it launches the kernel or raises; it never falls back.  It counts
 its launches in ``flash_attention.launches``.  The kernel is built at
 first use with ``nvcc`` for ``sm_90a`` (``kernels.nvcc``), launches on
 PyTorch's current stream and allocates nothing: the wrapper allocates the
-output.  On the card the output carries a gradient: the launch sits in
-an autograd Function whose backward, ``flash_attention_backward``, is
-plain PyTorch in f32 on the saved q, k and v.  There is no backward
+output.  The launch is the operator ``torch.ops.repro_torch.flash_attention``
+(``torch.library.custom_op``): a fake implementation for meta and fake
+tensors and a FLOP formula for ``torch.utils.flop_counter`` and the
+cost count.  On the card the
+output carries a gradient: the operator's backward,
+``flash_attention_backward``, is plain PyTorch in f32 on the saved q, k
+and v.  There is no backward
 kernel, since the JAX package has none (``jax.grad`` through its Pallas
 K4 fails); the training step recomputes the forward under
 checkpointing, so K4 launches twice a layer and step there.
@@ -50,6 +54,7 @@ import math
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..nvcc import CudaLibrary
 from .ref import flash_attention_ref
@@ -242,27 +247,58 @@ def _launch(q, k, v, causal: bool):
     return out
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K4 on the card with a gradient.  The forward launches the kernel;
-    the backward is :func:`flash_attention_backward`, plain PyTorch on
-    the saved q, k and v.  There is no backward kernel: the JAX package
-    has none to port (``jax.grad`` through its Pallas K4 fails), and the
-    function it differentiates off the TPU is this one."""
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool) -> torch.Tensor:
+    """K4 as an operator of PyTorch's dispatcher: one launch on CUDA
+    tensors.  Its fake implementation gives the shape on meta and fake
+    tensors, and its FLOP formula (:func:`flash_attention_flops`) is
+    registered with ``torch.utils.flop_counter``."""
+    return _launch(q, k, v, causal)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.causal = causal
-        ctx.save_for_backward(q, k, v)
-        return _launch(q, k, v, causal)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        with torch.profiler.record_function(BACKWARD_RANGE):
-            dq, dk, dv = flash_attention_backward(q, k, v, dout,
-                                                  causal=ctx.causal)
-        return dq, dk, dv, None
+@_flash_attention_op.register_fake
+def _(q, k, v, causal):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+def _setup_backward(ctx, inputs, output):
+    q, k, v, causal = inputs
+    ctx.causal = causal
+    ctx.save_for_backward(q, k, v)
+
+
+def _backward(ctx, dout):
+    """The gradient of K4: :func:`flash_attention_backward`, plain
+    PyTorch on the saved q, k and v.  There is no backward kernel: the
+    JAX package has none to port (``jax.grad`` through its Pallas K4
+    fails), and the function it differentiates off the TPU is this
+    one."""
+    q, k, v = ctx.saved_tensors
+    with torch.profiler.record_function(BACKWARD_RANGE):
+        dq, dk, dv = flash_attention_backward(q, k, v, dout,
+                                              causal=ctx.causal)
+    return dq, dk, dv, None
+
+
+_flash_attention_op.register_autograd(_backward,
+                                      setup_context=_setup_backward)
+
+
+def flash_attention_flops(B: int, S: int, H: int, D: int,
+                          causal: bool) -> int:
+    """The multiply-adds of K4 counted as 2 FLOPs each: q k^T and P v
+    over the (query, key) pairs it visits, S (S + 1) / 2 of them per
+    head under causal masking, S^2 otherwise."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4 * B * H * D * pairs
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
+           **kwargs) -> int:
+    B, S, H, D = q_shape
+    return flash_attention_flops(B, S, H, D, causal)
 
 
 def flash_attention(q, k, v, *, bq=128, bk=128, causal=True):
@@ -270,16 +306,19 @@ def flash_attention(q, k, v, *, bq=128, bk=128, causal=True):
     f32 = softmax(q k^T / sqrt(D), causal or not) v.  Under causal
     masking the key loop stops at the diagonal (SKIP, where the TPU
     kernel GATES future tiles; same numerics).  On the card the result
-    carries a gradient to q, k and v (``_FlashAttention``); CPU tensors
-    go to :func:`flash_attention_plain`, which autograd differentiates."""
+    carries a gradient to q, k and v (the registered operator
+    ``torch.ops.repro_torch.flash_attention``); CPU tensors go to
+    :func:`flash_attention_plain`, which autograd differentiates.  (The
+    models hand it each rank's shard of DTensors:
+    ``launch.sharding.per_head_shard``.)"""
     B, S, H, KV, D, bq, bk = _shapes(q, k, v, bq, bk)
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return flash_attention_plain(q, k, v, bq=bq, bk=bk, causal=causal)
-    return _FlashAttention.apply(q, k, v, causal)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
 
 
 flash_attention.launches = 0
 
 __all__ = ["BACKWARD_RANGE", "HEAD_DIMS", "LIBRARY", "flash_attention",
-           "flash_attention_backward", "flash_attention_plain",
+           "flash_attention_backward", "flash_attention_flops", "flash_attention_plain",
            "flash_attention_ref", "kernel_info"]

@@ -1,10 +1,12 @@
-"""Step builders: abstract shapes and step functions for training,
-prefill and decode (the JAX package's ``launch/steps.py``), shared by
-``train.py`` and the chip smoke test.
+"""Step builders: abstract shapes, shardings and step functions for
+training, prefill and decode (the JAX package's ``launch/steps.py``),
+shared by ``dryrun.py``, ``train.py`` and the chip smoke test.
 
 The abstract inputs live on the ``meta`` device: even the 76B-parameter
-configurations are described without allocating a byte.  Sharded
-inputs (``input_specs``) wait for mesh sharding (ROADMAP item 6).
+configurations are described without allocating a byte.
+:func:`input_specs` places them on a mesh as DTensors whose local shards
+are on the meta device; the step functions run on them unchanged inside
+``sharding.ShardedExecution``.
 """
 from __future__ import annotations
 
@@ -12,10 +14,12 @@ import dataclasses
 
 import torch
 
-from ..models import ModelConfig, get_api, lm_loss_from_hidden
+from ..models import ModelConfig, get_api, lm_loss_from_hidden, param_specs
 from ..models import transformer as T
-from ..optim import adamw_update
+from ..optim import adamw_init, adamw_update
+from .mesh import axis_names
 from .sharding import PartitionSpec as P
+from .sharding import shard_tree
 
 # ----------------------------------------------------------------------
 # The assigned input-shape set (one per cell kind)
@@ -53,39 +57,28 @@ def cell_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
 # Abstract params / cache / batch on the meta device
 # ----------------------------------------------------------------------
 def abstract_params(cfg: ModelConfig):
-    """The model of ``cfg`` on the meta device: every parameter's shape
-    and dtype, nothing allocated (the reference also returns its
-    partition specs, which wait for mesh sharding)."""
-    return get_api(cfg).init(cfg, None, _META)
+    """(the model of ``cfg`` on the meta device, {state-dict name:
+    partition spec}): every parameter's shape and dtype, nothing
+    allocated."""
+    model = get_api(cfg).init(cfg, None, _META)
+    return model, param_specs(model)
 
 
 def abstract_cache(cfg: ModelConfig, B: int, S: int):
     """Cache/state tensors on the meta device + their spec tree, for
     decode."""
     dtype = getattr(torch, cfg.dtype)
+    specs = T.cache_specs(cfg)
     if cfg.enc_dec:
         def kv(s):
             return torch.empty((cfg.num_layers, B, s, cfg.num_kv_heads,
                                 cfg.head_dim), dtype=dtype, device=_META)
-        shapes = ((kv(cfg.dec_max_len), kv(cfg.dec_max_len)), (kv(S), kv(S)))
-        self_spec = P(None, "data", None, "model", None)
-        cross_spec = P(None, "data", "model", None, None)
-        return shapes, ((self_spec, self_spec), (cross_spec, cross_spec))
+        return ((kv(cfg.dec_max_len), kv(cfg.dec_max_len)),
+                (kv(S), kv(S))), specs
     if cfg.family == "ssm":
-        m_spec = (P(None, "data", None, "model"),
-                  P(None, "data", None, None, None))
-        s_spec = (P(None, "data", "model"),) * 4
-        return T.xlstm_init_state(cfg, B, dtype, _META), (m_spec, s_spec)
+        return T.xlstm_init_state(cfg, B, dtype, _META), specs
     if cfg.family == "hybrid":
-        mamba_spec = (P(None, None, "data", None, "model"),
-                      P(None, None, "data", "model", None, None))
-        kv_spec = (P(None, "data", None, "model", None),) * 2
-        return (T.hybrid_init_state(cfg, B, S, dtype, _META),
-                (mamba_spec, kv_spec))
-    if cfg.mla:
-        specs = (P(None, "data", None, None),) * 2
-    else:
-        specs = (P(None, "data", None, "model", None),) * 2
+        return T.hybrid_init_state(cfg, B, S, dtype, _META), specs
     return T.lm_init_cache(cfg, B, S, dtype, _META), specs
 
 
@@ -147,23 +140,54 @@ def make_loss_fn(cfg: ModelConfig, remat_policy: str | None = "full"):
     return loss_fn
 
 
+def _compressed(grads: dict, mesh, generator) -> dict:
+    """The gradients still partial over the mesh's "data" dimension (a
+    rank's share of the data-parallel sum) summed across it with the
+    int8 all-reduce; the others as they are."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from ..runtime import compressed_grad_allreduce
+    d = mesh.mesh_dim_names.index("data")
+    n = mesh.size(d)
+    out = {}
+    for name, g in grads.items():
+        if isinstance(g, DTensor) and g.placements[d].is_partial():
+            mean = compressed_grad_allreduce([g.to_local()], mesh, "data",
+                                             generator)[0]
+            pls = list(g.placements)
+            pls[d] = Replicate()
+            g = DTensor.from_local(mean * n, mesh, pls, run_check=False)
+        out[name] = g
+    return out
+
+
 def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
-                    remat_policy: str | None = "full"):
+                    remat_policy: str | None = "full",
+                    compress_grads: bool = False, mesh=None):
     """``train_step(model, opt_state, batch)``: the loss, its gradient by
     ``loss.backward()`` and one :func:`adamw_update`, IN PLACE; returns
     (model, opt_state, {"loss", "grad_norm"}) with both metrics as
     detached device scalars.  Switches the model's gradients on (its
     weights are registered without them) and clears them after the
-    update."""
+    update.  ``compress_grads`` (with the ``mesh`` a DTensor model is
+    placed on) sums the data-parallel gradients with the int8
+    all-reduce (``runtime.compressed_grad_allreduce``, its noise from a
+    generator seeded 0) instead of DTensor's own all-reduce."""
+    if compress_grads and mesh is None:
+        raise ValueError("compress_grads needs the mesh of a DTensor model")
     loss_fn = make_loss_fn(cfg, remat_policy)
+    gen = []
 
     def train_step(model, opt_state, batch):
         model.requires_grad_(True)
         loss = loss_fn(model, batch)
         loss.backward()
         params = dict(model.named_parameters())
-        gnorm = adamw_update({n: p.grad for n, p in params.items()},
-                             opt_state, params, lr=lr)
+        grads = {n: p.grad for n, p in params.items()}
+        if compress_grads:
+            if not gen:
+                gen.append(torch.Generator(loss.device).manual_seed(0))
+            grads = _compressed(grads, mesh, gen[0])
+        gnorm = adamw_update(grads, opt_state, params, lr=lr)
         for p in params.values():
             p.grad = None
         return model, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
@@ -195,9 +219,61 @@ def make_decode_step(cfg: ModelConfig):
     return decode
 
 
+# ----------------------------------------------------------------------
+# Fully-sharded abstract inputs for one (arch x shape x mesh) cell
+# ----------------------------------------------------------------------
+POLICIES = ("tp", "dp_only", "kv_seq")
+
+
+def _strip_model(spec):
+    """dp_only policy: drop every 'model' entry (replicate params)."""
+    if isinstance(spec, P):
+        return P(*[None if e == "model" else e for e in spec])
+    if isinstance(spec, dict):
+        return {k: _strip_model(v) for k, v in spec.items()}
+    return type(spec)(_strip_model(s) for s in spec)
+
+
+def _batch_all_axes(spec, mesh):
+    """dp_only policy: shard the batch over EVERY mesh axis."""
+    if isinstance(spec, P):
+        return P(axis_names(mesh), *list(spec)[1:]) if len(spec) else spec
+    return {k: _batch_all_axes(v, mesh) for k, v in spec.items()}
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh, policy: str = "tp"):
-    """Sharded abstract inputs for one (arch x shape x mesh) cell: not
-    ported, since the port has no mesh sharding (ROADMAP Queue 1 item
-    6); raises."""
-    raise NotImplementedError("input_specs: mesh sharding is not ported yet "
-                              "(ROADMAP Queue 1 item 6)")
+    """Everything one step of the cell needs, as DTensors on ``mesh``
+    whose local shards are on the meta device (nothing allocated):
+    {"params": the model, its parameters placed by their specs;
+    "batch": the inputs; "opt_state" (train): the AdamW state, its
+    moments ZeRO-1 placed; "cache" and "pos" (decode)}.
+
+    policy: 'tp' (default: tensor parallel over the model axis) or
+    'dp_only' (replicate params, shard the batch over all axes — the
+    right call for small models where TP collectives dominate) or
+    'kv_seq' (tp + decode KV cache sharded along sequence instead of
+    kv-heads — for GQA archs whose few KV heads do not divide the model
+    axis)."""
+    if policy not in POLICIES:
+        raise ValueError(f"policy {policy!r}: one of {POLICIES}")
+    model, p_specs = abstract_params(cfg)
+    if policy == "dp_only":
+        p_specs = _strip_model(p_specs)
+    out = {}
+    if shape.kind == "train":
+        out["opt_state"] = adamw_init(model, mesh, p_specs)
+    out["params"] = shard_tree(model, p_specs, mesh)
+    batch, b_specs = abstract_batch(cfg, shape)
+    if policy == "dp_only":
+        b_specs = _batch_all_axes(b_specs, mesh)
+    out["batch"] = shard_tree(batch, b_specs, mesh)
+    if shape.kind == "decode":
+        cache, c_specs = abstract_cache(cfg, shape.batch, shape.seq)
+        if policy == "kv_seq" and not cfg.mla and \
+                cfg.family in ("dense", "moe", "vlm"):
+            c_specs = (P(None, "data", "model", None, None),) * 2
+        elif policy == "dp_only":
+            c_specs = _strip_model(c_specs)
+        out["cache"] = shard_tree(cache, c_specs, mesh)
+        out["pos"] = torch.zeros((), dtype=torch.int32, device=_META)
+    return out

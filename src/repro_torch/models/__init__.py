@@ -2,7 +2,8 @@
 (copied from the JAX package's ``models/config.py``) and the training and
 serving paths of every family (``layers``, ``ssm``, ``transformer``)."""
 from .config import HybridConfig, MLAConfig, MoEConfig, ModelConfig
+from .layers import param_specs
 from .transformer import ModelApi, get_api, lm_loss_from_hidden
 
 __all__ = ["HybridConfig", "MLAConfig", "MoEConfig", "ModelConfig",
-           "ModelApi", "get_api", "lm_loss_from_hidden"]
+           "ModelApi", "get_api", "lm_loss_from_hidden", "param_specs"]

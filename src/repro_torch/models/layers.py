@@ -24,21 +24,37 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attention.ops import flash_attention
+from ..launch.sharding import PartitionSpec as P
 from .config import ModelConfig
 
 NEG_INF = -1e30
+MODEL = "model"
+DATA = "data"
 
 
 class Params(nn.Module):
     """A named set of weights and sub-sets, read like the reference's
     parameter dicts: ``p[name]`` and ``name in p`` see both the tensors
     (parameters registered without gradients; training switches them on
-    with ``requires_grad_``) and the child modules."""
+    with ``requires_grad_``) and the child modules.  ``specs`` holds the
+    partition spec of each of its own tensors (the reference's spec
+    tree, set by :meth:`with_specs`; :func:`param_specs` collects them
+    by state-dict name)."""
 
     def __init__(self, **entries):
         super().__init__()
+        self.specs: dict[str, P] = {}
         for name, value in entries.items():
             self[name] = value
+
+    def with_specs(self, **specs) -> "Params":
+        """Record the partition spec of each named tensor; returns self."""
+        self.specs.update(specs)
+        return self
+
+    def __delitem__(self, name: str) -> None:
+        delattr(self, name)
+        self.specs.pop(name, None)
 
     def __setitem__(self, name: str, value) -> None:
         if isinstance(value, nn.Module):
@@ -54,6 +70,23 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def param_specs(model: nn.Module) -> dict[str, P]:
+    """The partition spec of every parameter of ``model``, keyed by its
+    state-dict name: the reference's spec of the same leaf, with the
+    leading layer axis of its stacked groups dropped (the port holds one
+    module per layer).  Raises ``KeyError`` for a parameter without
+    one."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name in mod._parameters:
+            key = f"{prefix}.{name}" if prefix else name
+            specs = getattr(mod, "specs", {})
+            if name not in specs:
+                raise KeyError(f"{key}: no partition spec")
+            out[key] = specs[name]
+    return out
 
 
 def _init(gen: torch.Generator | None, shape, scale_axis=0, device=None):
@@ -72,8 +105,9 @@ def _init(gen: torch.Generator | None, shape, scale_axis=0, device=None):
 def init_norm(cfg: ModelConfig, d: int, device=None) -> Params:
     ones = torch.ones((d,), device=device)
     if cfg.norm == "layernorm":
-        return Params(scale=ones, bias=torch.zeros((d,), device=device))
-    return Params(scale=ones)
+        return Params(scale=ones, bias=torch.zeros((d,), device=device)
+                      ).with_specs(scale=P(None), bias=P(None))
+    return Params(scale=ones).with_specs(scale=P(None))
 
 
 def apply_norm(p, x, eps: float = 1e-6):
@@ -142,7 +176,13 @@ def sdpa(q, k, v, q_pos, k_pos, *, causal=True, window=0, chunk=1024):
     the reference's reshape fails).  On a CUDA device, self-attention
     (causal, no window, Sq == Sk, Sq % 128 == 0) goes to the
     flash-attention kernel K4, whose output carries a gradient; the
-    chunked path is the fallback and the kernel's numerical reference."""
+    chunked path is the fallback and the kernel's numerical reference.
+    DTensors run it on each rank's (batch, heads) shard
+    (``launch.sharding.per_head_shard``)."""
+    if hasattr(q, "device_mesh"):       # DTensors: each rank its shard
+        from ..launch.sharding import per_head_shard
+        return per_head_shard(sdpa, q, k, v, q_pos, k_pos, causal=causal,
+                              window=window, chunk=chunk)
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -182,14 +222,18 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
     p = Params(wq=_init(gen, (d, qd), device=device),
                wk=_init(gen, (d, kvd), device=device),
                wv=_init(gen, (d, kvd), device=device),
-               wo=_init(gen, (qd, d), device=device))
+               wo=_init(gen, (qd, d), device=device)).with_specs(
+        wq=P(None, MODEL), wk=P(None, MODEL), wv=P(None, MODEL),
+        wo=P(MODEL, None))
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((qd,), device=device)
         p["bk"] = torch.zeros((kvd,), device=device)
         p["bv"] = torch.zeros((kvd,), device=device)
+        p.with_specs(bq=P(MODEL), bk=P(MODEL), bv=P(MODEL))
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((cfg.head_dim,), device=device)
         p["k_norm"] = torch.ones((cfg.head_dim,), device=device)
+        p.with_specs(q_norm=P(None), k_norm=P(None))
     return p
 
 
@@ -251,23 +295,49 @@ def attention_decode(p, x, cache, cfg: ModelConfig, pos, *,
     S = k_cache.shape[1]
     pos_vec = _pos_vec(pos, B, x.device)
     q, k, v = attention_qkv(p, x, cfg, pos_vec[:, None])
-    b_idx = torch.arange(B, device=x.device)
-    k_cache[b_idx, pos_vec] = k[:, 0].to(k_cache.dtype)
-    v_cache[b_idx, pos_vec] = v[:, 0].to(v_cache.dtype)
+    write_rows(k_cache, pos_vec, k[:, 0])
+    write_rows(v_cache, pos_vec, v[:, 0])
     k_pos = torch.arange(S, device=x.device)
     valid = k_pos[None, :] <= pos_vec[:, None]              # (B, S)
     if cfg.attn_window:
         valid = valid & (k_pos[None, :] > pos_vec[:, None] - cfg.attn_window)
-    KV, rep = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(B, KV, rep, cfg.head_dim)
-    s = torch.einsum("bgrd,bsgd->bgrs", qg.float(), k_cache.float())
-    s = s / math.sqrt(cfg.head_dim) + torch.where(valid, 0.0, NEG_INF)[
-        :, None, None, :]
-    prob = torch.softmax(s, dim=-1).to(x.dtype)
-    o = torch.einsum("bgrs,bsgd->bgrd", prob, v_cache.to(x.dtype))
+    if hasattr(q, "device_mesh"):       # DTensors: each rank its shard
+        from ..launch.sharding import per_head_shard
+        o = per_head_shard(_decode_attend, q, k_cache, v_cache,
+                           batch_args=(valid,))
+    else:
+        o = _decode_attend(q, k_cache, v_cache, valid)
     o = o.reshape(B, 1, cfg.q_dim)
     out = o @ p["wo"].to(x.dtype) if project else o
     return out, (k_cache, v_cache)
+
+
+def _decode_attend(q, k_cache, v_cache, valid):
+    """q (B, 1, H, D) over the cache (B, S, KV, D) where ``valid`` (B, S):
+    scores in f32, GQA by grouping the query heads of one KV head;
+    returns (B, 1, H, D) in q's type."""
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, D)
+    s = torch.einsum("bgrd,bsgd->bgrs", qg.float(), k_cache.float())
+    s = s / math.sqrt(D) + torch.where(valid, 0.0, NEG_INF)[:, None, None, :]
+    prob = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bgrs,bsgd->bgrd", prob, v_cache.to(q.dtype))
+    return o.reshape(B, 1, H, D)
+
+
+def write_rows(cache, pos_vec, new) -> None:
+    """``cache[b, pos_vec[b]] = new[b]`` for every row b, IN PLACE: cache
+    (B, S, ...), pos_vec (B,), new (B, ...).  A DTensor cache is written
+    shard by shard (``launch.sharding.write_rows_sharded``): each rank
+    writes its own rows, and where the cache is split along S, only the
+    rank that holds the position."""
+    if hasattr(cache, "device_mesh"):
+        from ..launch.sharding import write_rows_sharded
+        write_rows_sharded(cache, pos_vec, new)
+        return
+    b_idx = torch.arange(cache.shape[0], device=cache.device)
+    cache[b_idx, pos_vec] = new.to(cache.dtype)
 
 
 def _pos_vec(pos, B: int, device):
@@ -290,7 +360,10 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
         w_q=_init(gen, (d, H, m.qk_nope_head_dim + m.qk_rope_head_dim),
                   device=device),
         wo=_init(gen, (H * m.v_head_dim, d), device=device),
-        kv_norm=torch.ones((m.kv_lora_rank,), device=device))
+        kv_norm=torch.ones((m.kv_lora_rank,), device=device)).with_specs(
+        w_dkv=P(None, None), w_uk=P(None, MODEL, None),
+        w_uv=P(None, MODEL, None), w_q=P(None, MODEL, None),
+        wo=P(MODEL, None), kv_norm=P(None))
 
 
 def _mla_q(p, x, cfg: ModelConfig, positions):
@@ -333,9 +406,8 @@ def mla_fwd(p, x, cfg: ModelConfig, positions, cache=None, pos=None):
         ok = (k_pos[None, :] <= k_pos[:, None])[None]          # (1, Sq, Sk)
     else:
         c_kv, k_rope = cache
-        b_idx = torch.arange(B, device=x.device)
-        c_kv[b_idx, pos_vec] = c_new[:, 0].to(c_kv.dtype)
-        k_rope[b_idx, pos_vec] = kr_new[:, 0].to(k_rope.dtype)
+        write_rows(c_kv, pos_vec, c_new[:, 0])
+        write_rows(k_rope, pos_vec, kr_new[:, 0])
         k_pos = torch.arange(c_kv.shape[1], device=x.device)
         ok = k_pos[None, None, :] <= pos_vec[:, None, None]    # (B, 1, Sk)
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
@@ -377,7 +449,8 @@ def encode_kv(p, enc_out, cfg: ModelConfig):
 def init_mlp(d: int, d_ff: int, gen: torch.Generator, device=None) -> Params:
     return Params(wi=_init(gen, (d, d_ff), device=device),
                   wg=_init(gen, (d, d_ff), device=device),
-                  wo=_init(gen, (d_ff, d), device=device))
+                  wo=_init(gen, (d_ff, d), device=device)).with_specs(
+        wi=P(None, MODEL), wg=P(None, MODEL), wo=P(MODEL, None))
 
 
 def mlp_fwd(p, x):
@@ -399,7 +472,9 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
     p = Params(router=_init(gen, (d, E), device=device),
                wi=_init(gen, (E, d, f), 1, device=device),
                wg=_init(gen, (E, d, f), 1, device=device),
-               wo=_init(gen, (E, f, d), 1, device=device))
+               wo=_init(gen, (E, f, d), 1, device=device)).with_specs(
+        router=P(None, None), wi=P(MODEL, None, None),
+        wg=P(MODEL, None, None), wo=P(MODEL, None, None))
     if m.num_shared_experts:
         p["shared"] = init_mlp(d, m.shared_d_ff * m.num_shared_experts, gen,
                                device)
@@ -460,9 +535,11 @@ def moe_fwd(p, x, cfg: ModelConfig):
 def init_embedding(cfg: ModelConfig, gen: torch.Generator,
                    device=None) -> Params:
     p = Params(tok=_init(gen, (cfg.vocab_size, cfg.d_model), 1,
-                         device=device) * 0.02 * (cfg.d_model ** 0.5))
+                         device=device) * 0.02 * (cfg.d_model ** 0.5)
+               ).with_specs(tok=P(MODEL, None))
     if not cfg.tie_embeddings:
         p["head"] = _init(gen, (cfg.d_model, cfg.vocab_size), device=device)
+        p.with_specs(head=P(None, MODEL))
     return p
 
 

@@ -26,7 +26,8 @@ import torch
 from torch.nn.functional import silu
 
 from .config import ModelConfig
-from .layers import Params, _init, apply_norm
+from ..launch.sharding import PartitionSpec as P
+from .layers import MODEL, Params, _init, apply_norm
 
 
 def _softplus(x):
@@ -122,7 +123,9 @@ def init_mamba2(cfg: ModelConfig, gen: torch.Generator,
         dt_bias=torch.zeros((H,), device=device),
         D=torch.ones((H,), device=device),
         out_norm=torch.ones((d_in,), device=device),
-        w_out=_init(gen, (d_in, d), device=device))
+        w_out=_init(gen, (d_in, d), device=device)).with_specs(
+        w_in=P(None, MODEL), conv_w=P(None, MODEL), A_log=P(None),
+        dt_bias=P(None), D=P(None), out_norm=P(MODEL), w_out=P(MODEL, None))
 
 
 def _mamba_gates(p, u, cfg: ModelConfig):
@@ -179,7 +182,9 @@ def init_mlstm(cfg: ModelConfig, gen: torch.Generator,
         w_qkv=_init(gen, (d_in, 3 * d_in), device=device),
         w_if=_init(gen, (d_in, 2 * H), device=device),
         out_norm=torch.ones((d_in,), device=device),
-        w_down=_init(gen, (d_in, d), device=device))
+        w_down=_init(gen, (d_in, d), device=device)).with_specs(
+        w_up=P(None, MODEL), conv_w=P(None, MODEL), w_qkv=P(MODEL, None),
+        w_if=P(MODEL, None), out_norm=P(MODEL), w_down=P(MODEL, None))
 
 
 def mlstm_fwd(p, x, cfg: ModelConfig, state=None):
@@ -230,12 +235,20 @@ def init_slstm(cfg: ModelConfig, gen: torch.Generator,
         w_gates=_init(gen, (d, 4 * d), device=device),          # i, f, z, o
         r_gates=_init(gen, (d, 4 * d), device=device) * 0.1,   # recurrent
         w_down=_init(gen, (d, d), device=device),
-        out_norm=torch.ones((d,), device=device))
+        out_norm=torch.ones((d,), device=device)).with_specs(
+        w_gates=P(None, MODEL), r_gates=P(None, MODEL), w_down=P(MODEL, None),
+        out_norm=P(None))
 
 
 def slstm_fwd(p, x, cfg: ModelConfig, state=None):
     """state: (h, c, n, m), each (B, d); ``h`` in x's type, the rest f32.
-    One step per position, in order (xLSTM eq. 15-17, stabilised)."""
+    One step per position, in order (xLSTM eq. 15-17, stabilised).  On
+    DTensors each rank runs it on its batch shard with the weights
+    whole (``launch.sharding.per_batch_shard``): the loop's steps are
+    too small to split."""
+    if hasattr(x, "device_mesh"):
+        from ..launch.sharding import per_batch_shard
+        return per_batch_shard(slstm_fwd, p, x, cfg, state=state)
     B, S, d = x.shape
     pre = x @ p["w_gates"].to(x.dtype)                     # (B,S,4d)
     if state is None:

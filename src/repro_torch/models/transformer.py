@@ -38,6 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..core.device import resolve_device
+from ..launch.sharding import PartitionSpec as P
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
@@ -61,6 +62,39 @@ def _stacked(cfg: ModelConfig, n: int, init_one) -> nn.ModuleList:
 def _embed_init(cfg: ModelConfig, gen, device) -> Params:
     return _f32_to(L.init_embedding(cfg, gen, device),
                    getattr(torch, cfg.dtype))
+
+
+def _zeros(shape, dtype, device, like=None, spec=None):
+    """Zeros of ``shape``: a DTensor placed by the partition ``spec`` on
+    ``like``'s mesh when ``like`` (the activations the cache follows) is
+    a DTensor, so each rank makes only its shard; a plain tensor on
+    ``device`` otherwise."""
+    if like is not None and hasattr(like, "device_mesh"):
+        from ..launch.sharding import sharded_zeros
+        return sharded_zeros(shape, dtype, spec, like)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def cache_specs(cfg: ModelConfig):
+    """The partition specs of the caches and states of ``cfg`` (the
+    reference's ``cache_specs`` and ``launch.steps.abstract_cache``'s),
+    shaped like the trees of ``lm_init_cache``, ``xlstm_init_state``,
+    ``hybrid_init_state`` and whisper's prefill cache."""
+    if cfg.enc_dec:
+        self_spec = P(None, "data", None, "model", None)
+        cross_spec = P(None, "data", "model", None, None)
+        return ((self_spec, self_spec), (cross_spec, cross_spec))
+    if cfg.family == "ssm":
+        return ((P(None, "data", None, "model"),
+                 P(None, "data", None, None, None)),
+                (P(None, "data", "model"),) * 4)
+    if cfg.family == "hybrid":
+        return ((P(None, None, "data", None, "model"),
+                 P(None, None, "data", "model", None, None)),
+                (P(None, "data", None, "model", None),) * 2)
+    if cfg.mla:
+        return (P(None, "data", None, None),) * 2
+    return (P(None, "data", None, "model", None),) * 2
 
 
 def _positions(B: int, S_: int, device):
@@ -117,9 +151,10 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, device=None, *,
     if cfg.parallel_block and cfg.fused_proj and not moe_layer:
         # PaLM-style fusion: [attn_heads ; ffn_hidden] @ W_fused; the
         # separate output projections are dropped
-        del p["attn"].wo, p["mlp"].wo
+        del p["attn"]["wo"], p["mlp"]["wo"]
         p["w_fused"] = L._init(gen, (cfg.q_dim + cfg.d_ff, cfg.d_model),
                                device=device)
+        p.with_specs(w_fused=P(L.MODEL, None))
     return p
 
 
@@ -268,9 +303,11 @@ def lm_forward_train(params, tokens, cfg: ModelConfig, *, remat=True,
                      remat_policy=remat_policy)
 
 
-def lm_init_cache(cfg: ModelConfig, B: int, S_: int, dtype, device=None):
+def lm_init_cache(cfg: ModelConfig, B: int, S_: int, dtype, device=None,
+                  like=None):
     """(k, v), each (L, B, S, KV, D); with MLA (c_kv, k_rope), (L, B, S,
-    r) and (L, B, S, rope)."""
+    r) and (L, B, S, rope).  With ``like`` a DTensor, DTensors placed by
+    :func:`cache_specs` on its mesh."""
     if cfg.mla:
         m = cfg.mla
         shapes = ((cfg.num_layers, B, S_, m.kv_lora_rank),
@@ -278,7 +315,8 @@ def lm_init_cache(cfg: ModelConfig, B: int, S_: int, dtype, device=None):
     else:
         shapes = ((cfg.num_layers, B, S_, cfg.num_kv_heads,
                    cfg.head_dim),) * 2
-    return tuple(torch.zeros(s, dtype=dtype, device=device) for s in shapes)
+    return tuple(_zeros(s, dtype, device, like, sp)
+                 for s, sp in zip(shapes, cache_specs(cfg)))
 
 
 @torch.no_grad()
@@ -294,7 +332,7 @@ def lm_prefill(params, tokens, cfg: ModelConfig, S_max: int,
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     Sx = x.shape[1]
     positions = _positions(B, Sx, x.device)
-    cache = lm_init_cache(cfg, B, S_max, x.dtype, x.device)
+    cache = lm_init_cache(cfg, B, S_max, x.dtype, x.device, like=x)
     for layer, bp in enumerate(params["blocks"]):
         x, kv, _ = block_fwd(bp, x, cfg, positions, mode="prefill")
         for c, t in zip(cache, kv):
@@ -364,18 +402,22 @@ def xlstm_forward_train(params, tokens, cfg: ModelConfig, *, remat=True,
     return xlstm_hidden(params, x, cfg, remat=remat)
 
 
-def xlstm_init_state(cfg: ModelConfig, B: int, dtype, device=None):
+def xlstm_init_state(cfg: ModelConfig, B: int, dtype, device=None,
+                     like=None):
     """((conv (P, B, K-1, d_in), h (P, B, H, hd+1, hd)), (h, c, n, m) each
-    (P, B, d)) over the P pairs; ``c, n, m`` in f32."""
+    (P, B, d)) over the P pairs; ``c, n, m`` in f32.  With ``like`` a
+    DTensor, DTensors placed by :func:`cache_specs`."""
     n_pairs, d = cfg.num_layers // 2, cfg.d_model
     d_in = cfg.ssm_expand * d
     H = cfg.num_heads
     hd = d_in // H
+    (conv_sp, h_sp), (s_sp, _, _, _) = cache_specs(cfg)
 
-    def zeros(*shape, dt=dtype):
-        return torch.zeros((n_pairs, B) + shape, dtype=dt, device=device)
+    def zeros(*shape, dt=dtype, sp=s_sp):
+        return _zeros((n_pairs, B) + shape, dt, device, like, sp)
 
-    return ((zeros(cfg.ssm_conv - 1, d_in), zeros(H, hd + 1, hd)),
+    return ((zeros(cfg.ssm_conv - 1, d_in, sp=conv_sp),
+             zeros(H, hd + 1, hd, sp=h_sp)),
             (zeros(d), zeros(d, dt=torch.float32),
              zeros(d, dt=torch.float32) + 1, zeros(d, dt=torch.float32)))
 
@@ -386,7 +428,7 @@ def xlstm_prefill(params, tokens, cfg: ModelConfig, S_max: int):
     states of ``xlstm_init_state``); ``S_max`` is unused (the states do
     not grow)."""
     x = L.embed(params["embed"], tokens, cfg)
-    state = xlstm_init_state(cfg, x.shape[0], x.dtype, x.device)
+    state = xlstm_init_state(cfg, x.shape[0], x.dtype, x.device, like=x)
     for i, bp in enumerate(params["pairs"]):
         x, st = _xlstm_pair_fwd(bp, x, cfg)
         _copy_into(_select(state, i), st)
@@ -440,7 +482,7 @@ def init_hybrid(cfg: ModelConfig, generator: torch.Generator | None,
 
 
 def hybrid_init_state(cfg: ModelConfig, B: int, S_cache: int, dtype,
-                      device=None):
+                      device=None, like=None):
     """((conv (n, P, B, K-1, d_in + 2N), h (n, P, B, H, hd, N)), (k, v)
     each (n, B, S, KV, D)) for n super-blocks of P Mamba2 layers: the
     Mamba leaves carry the batch on axis 2, the shared block's KV (one
@@ -451,10 +493,11 @@ def hybrid_init_state(cfg: ModelConfig, B: int, S_cache: int, dtype,
     n = cfg.ssm_state
     lead = (n_super, period, B)
     kv = (n_super, B, S_cache, cfg.num_kv_heads, cfg.head_dim)
-    return tuple(tuple(torch.zeros(s, dtype=dtype, device=device)
-                       for s in pair)
-                 for pair in ((lead + (cfg.ssm_conv - 1, d_in + 2 * n),
-                               lead + (H, hd, n)), (kv, kv)))
+    shapes = ((lead + (cfg.ssm_conv - 1, d_in + 2 * n), lead + (H, hd, n)),
+              (kv, kv))
+    return tuple(tuple(_zeros(s, dtype, device, like, sp)
+                       for s, sp in zip(pair, specs))
+                 for pair, specs in zip(shapes, cache_specs(cfg)))
 
 
 def _hybrid_layers(params, cfg: ModelConfig):
@@ -502,7 +545,7 @@ def hybrid_prefill(params, tokens, cfg: ModelConfig, S_max: int):
     x = L.embed(params["embed"], tokens, cfg)
     positions = _positions(B, S_, x.device)
     (conv, h), kv = state = hybrid_init_state(cfg, B, S_max, x.dtype,
-                                              x.device)
+                                              x.device, like=x)
     for s, j, ip in _hybrid_layers(params, cfg):
         y, (c1, h1) = S.mamba2_fwd(ip["mamba"], L.apply_norm(ip["ln"], x),
                                    cfg)
@@ -614,8 +657,8 @@ def encdec_prefill(params, batch, cfg: ModelConfig, S_max: int):
     x = L.embed(params["embed"], dec_tokens, cfg)
     S_dec = min(S_max, cfg.dec_max_len)
     shape = (cfg.num_layers, B, S_dec, cfg.num_kv_heads, cfg.head_dim)
-    self_kv = tuple(torch.zeros(shape, dtype=x.dtype, device=x.device)
-                    for _ in range(2))
+    self_kv = tuple(_zeros(shape, x.dtype, x.device, x, sp)
+                    for sp in cache_specs(cfg)[0])
     cross = []
     for layer, bp in enumerate(params["dec"]):
         xkv = L.encode_kv(bp["xattn"], enc_out, cfg)

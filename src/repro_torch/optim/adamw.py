@@ -2,11 +2,12 @@
 (the JAX package's ``optim/adamw.py``).
 
 The f32 first and second moments are kept per parameter name.
-``zero1_specs`` gives the specs a sharded run would use: each
-parameter's own spec, plus its largest unsharded dimension over the
-"data" axis where that divides it (ZeRO-1).  The port runs on one card,
-so nothing is sharded yet (ROADMAP item 6); the specs are computed as
-the reference computes them.
+``zero1_specs`` gives the specs a sharded run uses: each parameter's own
+spec, plus its largest unsharded dimension over the "data" axis where
+that divides it (ZeRO-1).  ``adamw_init(model, mesh=, specs=)`` places
+the moments of a model whose parameters are DTensors by them, as the
+reference's ``input_specs`` places its optimizer state; the update then
+runs on the DTensors as it runs on plain tensors.
 """
 from __future__ import annotations
 
@@ -27,18 +28,28 @@ class AdamWState:
     step: torch.Tensor
 
 
-def adamw_init(model) -> AdamWState:
+def adamw_init(model, mesh=None, specs=None) -> AdamWState:
     """Zero moments in f32 for every parameter of ``model``, on its
     device (a model on the meta device gives a skeleton to restore
-    into)."""
+    into).  With ``mesh`` and ``specs`` (the parameters' partition specs
+    by name), the moments are DTensors placed by :func:`zero1_specs`
+    (``launch.sharding.shard_tree``); else they are laid out as the
+    parameters are (a DTensor's moments as DTensors of its placement)."""
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {n: torch.zeros_like(p, dtype=torch.float32,
+                                    requires_grad=False)
                 for n, p in params.items()}
 
-    return AdamWState(mu=zeros(), nu=zeros(),
+    mu, nu = zeros(), zeros()
+    if mesh is not None:
+        from ..launch.mesh import axis_sizes
+        from ..launch.sharding import shard_tree
+        z1 = zero1_specs(specs, params, data_size=axis_sizes(mesh)["data"])
+        mu, nu = shard_tree(mu, z1, mesh), shard_tree(nu, z1, mesh)
+    return AdamWState(mu=mu, nu=nu,
                       step=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -125,6 +136,15 @@ def adamw_update(grads, state: AdamWState, params, *, lr: float,
     if decay:
         torch._foreach_add_([delta[i] for i in decay], torch._foreach_mul(
             [p32[i] for i in decay], weight_decay))
-    torch._foreach_copy_(ps, torch._foreach_sub(
-        p32, torch._foreach_mul(delta, lr)))
+    new = torch._foreach_sub(p32, torch._foreach_mul(delta, lr))
+    if _is_dtensor(ps[0]):      # DTensor has no strategy for _foreach_copy_
+        for p, x in zip(ps, new):
+            p.copy_(x)
+    else:
+        torch._foreach_copy_(ps, new)
     return gnorm
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)

@@ -12,9 +12,8 @@ count.  The pieces here:
     host; here it logs and counts (hook injectable).
   * Heartbeat — background thread touching a liveness file every few
     seconds; an external supervisor (or test) detects missed beats.
-  * elastic_mesh — in the reference, the best (data, model) mesh over
-    the devices currently alive.  The port runs on one card and has no
-    mesh yet (ROADMAP item 6): it raises.
+  * elastic_mesh — the best (data, model) ``DeviceMesh`` over the ranks
+    currently alive (one card: (1, 1)).
 """
 from __future__ import annotations
 
@@ -88,8 +87,18 @@ class Heartbeat:
         return time.time() - float(self.path.read_text())
 
 
-def elastic_mesh(prefer_model: int = 4):
-    """Best-effort (data, model) mesh over the devices currently alive:
-    not ported (mesh sharding is ROADMAP Queue 1 item 6); raises."""
-    raise NotImplementedError("elastic_mesh: mesh sharding is not ported "
-                              "yet (ROADMAP Queue 1 item 6)")
+def elastic_mesh(prefer_model: int = 4, device_type: str = "cuda"):
+    """Best-effort (data, model) ``DeviceMesh`` over the ranks currently
+    alive: the model axis is the largest size up to ``prefer_model``
+    that divides their count.  Initialises a process group where none is
+    (``launch.mesh.init_local_process_group``: the ``torchrun``
+    environment, else this process alone, so one card gives (1, 1))."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ..launch.mesh import init_local_process_group
+    init_local_process_group(device_type)
+    n = dist.get_world_size()
+    model = next(m for m in range(min(prefer_model, n), 0, -1) if n % m == 0)
+    return init_device_mesh(device_type, (n // model, model),
+                            mesh_dim_names=("data", "model"))

@@ -64,7 +64,7 @@ def test_bf16_round_trip_is_exact(tmp_path):
     assert "opt/mu/blocks.0.attn.wq" in manifest["keys"]
     with np.load(tmp_path / "step_7" / "arrays.npz") as data:
         assert data["params/blocks.0.attn.wq"].dtype == np.float32
-    skeleton = abstract_params(cfg)
+    skeleton, _ = abstract_params(cfg)
     (got, extra) = load_checkpoint(
         tmp_path, {"params": skeleton, "opt": adamw_init(skeleton)},
         device="cpu")
@@ -140,7 +140,7 @@ def test_save_async_snapshots_before_its_thread(tmp_path, monkeypatch):
 def test_restore_places_tensors_on_the_device(tmp_path, device):
     cfg, model, opt = _model("float32")
     save_checkpoint(tmp_path, 1, {"params": model, "opt": opt})
-    skeleton = abstract_params(cfg)
+    skeleton, _ = abstract_params(cfg)
     got, _ = load_checkpoint(tmp_path, {"params": skeleton,
                                         "opt": adamw_init(skeleton)},
                              device=device)

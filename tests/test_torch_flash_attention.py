@@ -174,7 +174,8 @@ def test_backward_matches_autograd(S, H, KV, causal):
 
 
 def test_function_carries_the_gradient(monkeypatch):
-    """The autograd Function around the launch: its forward is the
+    """The registered operator around the launch
+    (``torch.ops.repro_torch.flash_attention``): its forward is the
     launch (here the plain version, detached as the kernel's output
     is), its backward ``flash_attention_backward``."""
     monkeypatch.setattr(ops, "_launch", lambda q, k, v, causal: (
@@ -182,8 +183,8 @@ def test_function_carries_the_gradient(monkeypatch):
     _, xs = _case(1, 128, 4, 2, 16, "float32", 5)
     dout = torch.randn((1, 128, 4, 16), generator=torch.Generator()
                        .manual_seed(0))
-    got = _grads(lambda q, k, v: ops._FlashAttention.apply(q, k, v, True),
-                 xs, dout)
+    got = _grads(lambda q, k, v: torch.ops.repro_torch.flash_attention(
+        q, k, v, True), xs, dout)
     want = _grads(flash_attention_plain, xs, dout)
     assert _grad_err(got, want) <= 1e-5
 

@@ -132,10 +132,9 @@ def test_params_from_reference_raises(fault):
 def test_unported_families_raise():
     """Every family serves and trains (``get_api`` gives each its
     prefill, decode and ``forward_train``: (hidden (B, S, d), f32 aux) on
-    the CPU); what is not ported yet, mesh sharding, raises naming its
-    ROADMAP item."""
-    from repro_torch.launch.steps import SHAPES, input_specs
-    from repro_torch.runtime import elastic_mesh
+    the CPU).  Mesh sharding is ported now: ``input_specs`` and
+    ``elastic_mesh`` are held to their contracts in
+    ``test_torch_dist.py``."""
     for arch in ("qwen2-0.5b", "llama4-scout-17b-a16e",
                  "deepseek-v2-lite-16b", "xlstm-350m", "zamba2-7b",
                  "internvl2-76b", "whisper-base"):
@@ -149,10 +148,6 @@ def test_unported_families_raise():
         hidden, aux = api.forward_train(model, inputs, cfg)
         assert tuple(hidden.shape) == (2, 8, cfg.d_model)
         assert bool(torch.isfinite(hidden).all()) and aux.dim() == 0
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            input_specs(cfg, SHAPES["train_4k"], None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        elastic_mesh()
 
 
 # ----------------------------------------------------------------------
