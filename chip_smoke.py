@@ -84,6 +84,21 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    total, winners re-validated, the candidates/s ratio; then fused
    island mode (chunks on the service's thread), and fused islands
    without migration held to direct fused runs of the same seeds;
+8a. sharded: population sharding of the engine (``evaluate(...,
+   mesh=)``) on conv2_x over a simulated mesh of 4 shards on the card: a
+   4,099-candidate bucketed population against the unsharded engine
+   (bit for bit, bounded by 1e-12 relative), both warm medians; ES at
+   population 1024 x 16 generations sharded and not, identical logs,
+   candidates/s of each; a 262,144-candidate population timed both
+   ways with the device's busy share; ``EvaluationService(mesh=)``
+   against direct evaluations; the same over every card when two or
+   more are visible;
+8b. examples: every ``examples/pt_*.py`` on the card; those that reach
+   a kernel in this process (``runpy``), the rest each a process of its
+   own, all at once: K3's launches through ``pt_sparsity_advisor.py``
+   (the advised 2:8 product at 128 x 512 x 256, bf16, held to K3's
+   plain version at 1e-5 of the largest magnitude) and K4's through
+   ``pt_train_lm.py``, counted by this process's wrappers;
 9. validation: the paper's validation on the port — Fig. 11, 12 and
    13's errors of the model against the copied refsim (host-side model
    outputs), Table 5's CPHC of the batched engine on the card over the
@@ -183,6 +198,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -355,6 +372,14 @@ REFERENCE_HYBRID_RATIOS = (
 HYBRID_GRAD_REL = ORACLE_REL
 #: the service phase: islands, generations, migration interval
 ISLANDS, ISLAND_GENS, ISLAND_MIGRATE = 4, 16, 4
+#: the sharded phase: a bucketed population that is not a multiple of
+#: the shard count, the simulated shards on one card, the population
+#: timed to show where the device sets the pace, warm repetitions; a
+#: shard's metrics against the unsharded engine's, relative (0 when bit
+#: for bit; the bound allows a float64 batched product that cuBLAS
+#: chooses by batch size)
+SHARD_POP, SHARDS, SHARD_LARGE, SHARD_REPS = 4099, 4, 262_144, 5
+SHARD_REL = 1e-12
 #: the validation phase: refsim against the engine at these cube sides,
 #: on this many of each side's Table-5 tilings
 REFSIM_SIDES, REFSIM_SAMPLES = (32, 64), 8
@@ -1509,6 +1534,221 @@ def phase_service(device="cuda", n_islands=ISLANDS, pop=FUSED_POP,
     if not all(same):
         raise AssertionError(f"fused islands replayed on the service's "
                              f"thread differ from direct runs: {same}")
+    return out
+
+
+def _max_rel_diff(got: dict, want: dict) -> float:
+    """The largest relative difference over every metric of two
+    evaluations (0.0 when they are equal bit for bit; NaN and inf
+    compared as equal where both have them)."""
+    worst = 0.0
+    for k, w in want.items():
+        g, w = np.asarray(got[k], np.float64), np.asarray(w, np.float64)
+        same = (g == w) | (np.isnan(g) & np.isnan(w))
+        if not same.all():
+            d = np.abs(g - w)[~same] / np.maximum(np.abs(w)[~same], 1e-300)
+            worst = max(worst, float(np.nan_to_num(d, nan=np.inf).max()))
+    return worst
+
+
+def _warm_median(fn, reps: int) -> tuple:
+    """(last result, median seconds of ``reps`` calls after a warm-up)
+    of ``fn``, each call ending in its device-to-host copy."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times))
+
+
+def _sharded_checks(mesh, design, wl, enc, cons, pop, es_pop, es_gens,
+                    large, reps, device) -> dict:
+    """Every check of the sharded phase over one mesh (see
+    :func:`phase_sharded`)."""
+    from repro_torch.core import Sparseloop
+    from repro_torch.dse import EvaluationService
+    from repro_torch.search import run_search
+    dev = mesh.devices[0]
+    out = {"mesh": str(mesh), "shards": mesh.size,
+           "simulated": mesh.simulated}
+
+    def population(seed, n):
+        bucket, bounds, ids = enc.decode_bucketed(
+            enc.random_population(seed, n))
+        return (Sparseloop(design, device=dev).bucketed_model(wl, bucket),
+                bounds, ids)
+
+    model, bounds, ids = population(0, pop)
+    plain, plain_s = _warm_median(lambda: model.evaluate(bounds, ids),
+                                  reps)
+    sharded, sharded_s = _warm_median(
+        lambda: model.evaluate(bounds, ids, mesh=mesh), reps)
+    out["population"] = {
+        "candidates": pop, "max_rel_diff": _max_rel_diff(sharded, plain),
+        "bit_identical": _max_rel_diff(sharded, plain) == 0.0,
+        "unsharded_warm_ms": plain_s * 1e3,
+        "sharded_warm_ms": sharded_s * 1e3}
+    if out["population"]["max_rel_diff"] > SHARD_REL:
+        raise AssertionError(f"sharded: {out['population']}")
+
+    logs, rates = [], []
+    for m in (None, mesh):
+        res, dt, st = _search_run(lambda m=m: run_search(
+            design, wl, cons, strategy="es", key=0, pop_size=es_pop,
+            generations=es_gens, mesh=m, device=dev), device)
+        _revalidated(design, wl, res, f"sharded ES (mesh {m})")
+        logs.append(res.log.to_json(timing=False))
+        rates.append(es_pop * es_gens / dt)
+    out["es"] = {"pop": es_pop, "generations": es_gens,
+                 "same_log": logs[0] == logs[1],
+                 "unsharded_candidates_per_s": rates[0],
+                 "sharded_candidates_per_s": rates[1]}
+    if not out["es"]["same_log"]:
+        raise AssertionError(f"sharded ES log differs: {out['es']}")
+
+    model, bounds, ids = population(1, large)
+    plain, plain_s = _warm_median(lambda: model.evaluate(bounds, ids), 2)
+    sharded, sharded_s = _warm_median(
+        lambda: model.evaluate(bounds, ids, mesh=mesh), 2)
+    out["large"] = {
+        "candidates": large, "max_rel_diff": _max_rel_diff(sharded, plain),
+        "unsharded_warm_s": plain_s, "sharded_warm_s": sharded_s,
+        "unsharded_candidates_per_s": large / plain_s,
+        "sharded_candidates_per_s": large / sharded_s,
+        "unsharded_trace": _device_busy(
+            lambda: model.evaluate(bounds, ids), device),
+        "sharded_trace": _device_busy(
+            lambda: model.evaluate(bounds, ids, mesh=mesh), device)}
+    if out["large"]["max_rel_diff"] > SHARD_REL:
+        raise AssertionError(f"sharded large: {out['large']}")
+
+    model, bounds, ids = population(2, pop)
+    half = pop // 2
+    with EvaluationService(mesh=mesh) as svc:
+        futs = [svc.submit(model, bounds[a:b], rank_ids=ids[a:b], client=c)
+                for c, a, b in (("a", 0, half), ("b", half, pop))]
+        parts = [f.result(600) for f in futs]
+    served = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    out["service"] = {"max_rel_diff": _max_rel_diff(
+        served, model.evaluate(bounds, ids)), **svc.stats()}
+    if out["service"]["max_rel_diff"] > SHARD_REL:
+        raise AssertionError(f"sharded service: {out['service']}")
+    return out
+
+
+def phase_sharded(device="cuda", pop=SHARD_POP, shards=SHARDS,
+                  es_pop=ES_POP, es_gens=ES_GENS, large=SHARD_LARGE,
+                  reps=SHARD_REPS) -> dict:
+    """Population sharding of the engine on ``device`` (conv2_x under
+    ``scnn_like(three_level_arch())``, n = 8): over a simulated mesh of
+    ``shards`` shards on the one card, a ``pop``-candidate bucketed
+    population (not a multiple of the shards) against the unsharded
+    engine, bit for bit (bounded by ``SHARD_REL``), with both warm
+    medians; ES at ``es_pop`` x ``es_gens`` sharded and not, identical
+    logs, candidates/s of each; a ``large``-candidate population timed
+    both ways, with the device's busy share of one traced call each;
+    ``EvaluationService(mesh=)`` against direct evaluations.  With two
+    or more cards visible the same checks run over the real mesh
+    (``population_mesh``)."""
+    from repro_torch.core.device import PopulationMesh, resolve_device
+    from repro_torch.core.mapper import MapspaceConstraints
+    from repro_torch.search import MapspaceEncoding, population_mesh
+    dev = resolve_device(None if device == "cuda" else device)
+    design, wl = _layer_cell()
+    cons = MapspaceConstraints(budget=es_pop * es_gens, seed=0,
+                               spatial={1: {"n": 8}})
+    enc = MapspaceEncoding(wl, design.arch.num_levels, cons)
+    meshes = {"simulated": PopulationMesh((dev,) * shards)}
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= 2:
+        meshes["cards"] = population_mesh(device=dev)
+    else:
+        print(f"[sharded] one card visible ({cards}): the real-mesh "
+              f"checks need a machine with two or more")
+    out = {"card": card_line() if device != "cpu" else "cpu",
+           "cards_visible": cards}
+    for tag, mesh in meshes.items():
+        out[tag] = _sharded_checks(mesh, design, wl, enc, cons, pop,
+                                   es_pop, es_gens, large, reps, device)
+        print(f"[sharded] {tag} {json.dumps(out[tag])}")
+    return out
+
+
+#: the examples that reach a kernel run in this process, so that the
+#: kernels' own counters count their launches where they happen
+IN_PROCESS_EXAMPLES = ("pt_sparsity_advisor", "pt_train_lm")
+
+
+def phase_examples(device="cuda", timeout=300) -> dict:
+    """Every ``examples/pt_*.py`` on ``device``; a failure fails the run.
+    Those that reach no kernel run as processes of their own, all at
+    once; meanwhile ``IN_PROCESS_EXAMPLES`` run here one after another
+    (``runpy``), so K3's launches (``pt_sparsity_advisor.py``, which
+    exits nonzero when K3 disagrees with its plain version) and K4's
+    (``pt_train_lm.py``) are counted by this process's wrappers."""
+    import contextlib
+    import io
+    import runpy
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.nm_spmm import ops as nm_ops
+    root = _root()
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    args = [] if device == "cuda" else ["--device", device]
+    scripts = {p.stem: p for p in sorted((root / "examples").glob("pt_*.py"))}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(p), *args], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, p in scripts.items() if name not in IN_PROCESS_EXAMPLES}
+    out, failed = {}, {}
+    for name in IN_PROCESS_EXAMPLES:
+        before = {"K3": nm_ops.nm_spmm.launches,
+                  "K4": fa_ops.flash_attention.launches}
+        buf, argv = io.StringIO(), sys.argv
+        sys.argv = [str(scripts[name]), *args]
+        rc = 0
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(scripts[name]), run_name="__main__")
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+            failed[name] = str(e.code)
+        except Exception as e:  # noqa: BLE001 — reported, then raised
+            rc = 1
+            failed[name] = f"{type(e).__name__}: {e}"
+        finally:
+            sys.argv = argv
+        out[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                     "last_line": buf.getvalue().strip().splitlines()[-1:],
+                     "K3_launches": nm_ops.nm_spmm.launches - before["K3"],
+                     "K4_launches": (fa_ops.flash_attention.launches
+                                     - before["K4"])}
+        if name == "pt_sparsity_advisor":
+            hit = re.search(r"^relative to the largest \|out\|: (\S+)",
+                            buf.getvalue(), re.M)
+            out[name]["k3_rel_err"] = float(hit.group(1)) if hit else None
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        out[name] = {"rc": proc.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "last_line": stdout.strip().splitlines()[-1:]}
+        if proc.returncode:
+            failed[name] = (stdout[-1500:], stderr[-1500:])
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[examples] {json.dumps(out)}")
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+    advisor = out["pt_sparsity_advisor"]
+    if device != "cpu" and not advisor["K3_launches"]:
+        raise AssertionError("pt_sparsity_advisor.py did not launch K3")
+    if advisor["k3_rel_err"] is None:
+        raise AssertionError("pt_sparsity_advisor.py printed no K3 error")
     return out
 
 
@@ -2701,6 +2941,8 @@ def main() -> int:
         host_production=search["production"]))
     hybrid = main_path("hybrid", phase_hybrid)
     service = main_path("service", phase_service)
+    sharded = main_path("sharded", phase_sharded)
+    examples = main_path("examples", phase_examples)
     validation = main_path("validation", phase_validation)
     fleet = main_path("fleet", phase_fleet)
     rows = main_path("agreement", phase_agreement)
@@ -2739,7 +2981,8 @@ def main() -> int:
                "k4_variants": build["k4_variants"],
                "k3_variants": build["k3_variants"], "model": model,
                "search": search, "fused": fused, "hybrid": hybrid,
-               "service": service, "validation": validation,
+               "service": service, "sharded": sharded,
+               "examples": examples, "validation": validation,
                "fleet": fleet, "serve": serve,
                "serve_check": serve_check, "families": families,
                "families_check": families_check, "train": train,

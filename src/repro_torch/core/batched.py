@@ -50,9 +50,27 @@ device-to-host copy (all metrics packed into one array); workload params
 and an unbatched design's rows are copied once per device and cached.
 Every program construction and every first evaluation of a (program,
 device, shape) triple is counted by :mod:`.compile_stats`.
+
+Population sharding
+-------------------
+``evaluate(..., mesh=)`` with a :class:`~.device.PopulationMesh` of more
+than one shard splits the candidate axis over the mesh's devices, as the
+JAX package's ``shard_map`` of the vmapped program does: the population
+is padded to a multiple of the shard count by repeating its last
+candidate, each shard's columns go to its device in one copy, the
+workload params and an unbatched design's rows are bound once per
+device, every shard is issued before the first device-to-host copy, and
+the results are concatenated in candidate order with the padding
+stripped.  The engine works per candidate with no reduction across
+candidates, so a shard's metrics equal the same candidates' unsharded
+metrics.  The calling thread issues the shards in turn: the devices run
+them at once, but the host pays every shard's launches (a worker thread
+per card was tried first and was slower still on four H100s: the
+threads' Python dispatch contends for one interpreter lock).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import threading
@@ -69,7 +87,7 @@ from .arch import (COMPUTE_FIELDS, STORAGE_FIELDS, ArchParams,
 from .density import (ACTUAL_ID, BatchedDensityUnsupported, DensityCaps,
                       DensityModel, TracedDensityStats, caps_for_models,
                       make_density_model)
-from .device import resolve_device
+from .device import PopulationMesh, resolve_device
 from .mapping import Loop, LoopNest
 from .taxonomy import RankFormat, SAFSpec, SAFKind
 from .workload import TensorSpec, Workload
@@ -127,12 +145,17 @@ class WorkloadParams:
         cached per device because the params are immutable, plus the
         host tuple of kind ids the density selection evaluates."""
         device = resolve_device(device)
-        cache = self.__dict__.get("_device_leaves")
-        if cache is None:
-            cache = {}
-            object.__setattr__(self, "_device_leaves", cache)
         key = str(device)
-        if key not in cache:
+        cache = self.__dict__.get("_device_leaves")
+        if cache is not None and key in cache:
+            return cache[key]
+        with _CACHE_LOCK:
+            cache = self.__dict__.get("_device_leaves")
+            if cache is None:
+                cache = {}
+                object.__setattr__(self, "_device_leaves", cache)
+            if key in cache:
+                return cache[key]
             rb, mids, dp, hist = self.leaves()
             cache[key] = (
                 torch.as_tensor(np.asarray(rb, np.float64), device=device),
@@ -141,7 +164,7 @@ class WorkloadParams:
                 torch.as_tensor(np.asarray(hist, np.float64),
                                 device=device),
                 tuple(int(k) for k in mids))
-        return cache[key]
+            return cache[key]
 
 
 def _density_models(workload: Workload) -> list[DensityModel]:
@@ -525,9 +548,11 @@ class _ProgramRecord:
 _PROGRAM_CACHE: dict = {}
 _PROGRAM_CACHE_CAP = 128
 
-#: guards _PROGRAM_CACHE / _MODEL_CACHE lookup-and-insert plus the
-#: per-record compile bookkeeping (an RLock because a facade constructor
-#: under _CACHE_LOCK re-enters _init_program)
+#: guards _PROGRAM_CACHE / _MODEL_CACHE lookup-and-insert, the
+#: per-record compile bookkeeping and the per-device caches (constants,
+#: workload leaves, arch rows), which a service's evaluator thread and
+#: direct callers may fill at once (an RLock because a facade
+#: constructor under _CACHE_LOCK re-enters _init_program)
 _CACHE_LOCK = threading.RLock()
 
 
@@ -626,13 +651,15 @@ class _TracedNestModel:
         k = (str(dev), key)
         out = self._consts.get(k)
         if out is None:
-            out = self._consts[k] = make()
+            with _CACHE_LOCK:
+                out = self._consts.get(k)
+                if out is None:
+                    out = self._consts[k] = make()
         return out
 
-    def _bind_params(self, workload_params: WorkloadParams | None
-                     ) -> tuple:
-        """Validate the workload params and return their device
-        leaves."""
+    def _check_params(self, workload_params: WorkloadParams | None
+                      ) -> WorkloadParams:
+        """Validate the workload params (the facade's own by default)."""
         wp = workload_params or self.workload_params
         if wp.caps != self.caps:
             raise ValueError(
@@ -649,7 +676,14 @@ class _TracedNestModel:
                 len(wp.model_ids) != len(self.workload.tensors):
             raise ValueError("workload_params shape does not match the "
                              "program's workload structure")
-        return wp.device_leaves(self.device)
+        return wp
+
+    def _bind_params(self, workload_params: WorkloadParams | None
+                     ) -> tuple:
+        """Validate the workload params and return their leaves on this
+        facade's device."""
+        return self._check_params(workload_params).device_leaves(
+            self.device)
 
     def _bind_arch(self, arch_params: ArchParams | None,
                    n: int) -> ArchParams:
@@ -675,13 +709,14 @@ class _TracedNestModel:
                 f"rows, population has {n}")
         return ap
 
-    def _upload(self, cols, ap: ArchParams, n: int):
-        """One host-to-device copy per evaluation: the (C, k) integer
-        columns (bounds, rank ids) and any host-side per-candidate arch
-        rows, packed into one float64 array.  Returns the column blocks
-        as device tensors plus the per-candidate ``(storage (C, S, F),
-        compute (C, 4))`` rows."""
-        dev = self.device
+    def _upload(self, cols, ap: ArchParams, n: int, dev=None):
+        """One host-to-device copy per evaluation (or shard): the (C, k)
+        integer columns (bounds, rank ids) and any host-side
+        per-candidate arch rows, packed into one float64 array and
+        copied to ``dev`` (this facade's device by default).  Returns
+        the column blocks as device tensors plus the per-candidate
+        ``(storage (C, S, F), compute (C, 4))`` rows."""
+        dev = self.device if dev is None else dev
         S, F = self.arch.num_levels, len(STORAGE_FIELDS)
         host = [np.asarray(c, np.float64).reshape(n, -1) for c in cols]
         arch_on_host = ap.batched and not isinstance(ap.storage,
@@ -717,34 +752,76 @@ class _TracedNestModel:
         device, so the interval is host->device->host inclusive."""
         is_new = self._prog.note_compile((str(self.device),)
                                          + tuple(shape_key))
-        name = "engine.compile" if is_new else "engine.eval"
         t0 = time.perf_counter()
-        with obs.span(name, kind=self.kind,
-                      workload=self.workload.name, candidates=n,
-                      shape=shape_key):
-            res = fn(batch_args, wp)
-            cols = [res[k].to(F64) for k in _METRICS]
-            # any further per-candidate outputs (the arch gradient's
-            # loss and gradient rows) ride in the same copy
-            extra = [k for k in res
-                     if k not in _METRICS and k != "occupancy"]
-            blocks = [torch.stack(cols, 1), res["occupancy"]] + [
-                res[k].to(F64).reshape(n, -1) for k in extra]
-            packed = torch.cat(blocks, dim=1).cpu().numpy()
-        dt = time.perf_counter() - t0
-        if is_new:
-            compile_stats.record_compile_seconds(dt)
-        else:
-            compile_stats.record_eval_seconds(dt)
-        out = {k: packed[:, i].copy() for i, k in enumerate(_METRICS)}
-        out["valid"] = out["valid"] != 0
-        j = len(_METRICS)
-        for k, blk in zip(["occupancy"] + extra, blocks[1:]):
-            width = blk.shape[1]
-            out[k] = packed[:, j: j + width].reshape(
-                (n,) + tuple(res[k].shape[1:])).copy()
-            j += width
-        return out
+        with obs.span("engine.compile" if is_new else "engine.eval",
+                      kind=self.kind, workload=self.workload.name,
+                      candidates=n, shape=shape_key):
+            packed, layout = _pack(fn(batch_args, wp), n)
+            packed = packed.cpu().numpy()
+        _record_seconds(is_new, time.perf_counter() - t0)
+        return _unpack(packed, layout)
+
+    def _evaluate(self, cols, ap: ArchParams, workload_params,
+                  mesh: PopulationMesh | None) -> dict[str, np.ndarray]:
+        """The shared body of ``evaluate``: bind, count, then run the
+        program on this facade's device, or sharded over ``mesh``."""
+        n = len(cols[0])
+        if mesh is not None and mesh.devices[0] != self.device:
+            raise ValueError(f"mesh {mesh} does not start at this "
+                             f"model's device {self.device}")
+        wp = self._check_params(workload_params)
+        ap = self._bind_arch(ap, n)
+        # count only after the params bound — a rejected population
+        # must not inflate the counters
+        compile_stats.record_batched_evals(n, shared=self.program_shared)
+        if mesh is None or mesh.size <= 1:
+            parts, ap_rows = self._upload(cols, ap, n)
+            return self._run(self._prog.fn, (*parts, ap_rows),
+                             wp.device_leaves(self.device),
+                             tuple(np.shape(cols[0])), n)
+        return self._run_sharded(cols, ap, wp, n, mesh)
+
+    def _run_sharded(self, cols, ap: ArchParams, wp: WorkloadParams,
+                     n: int, mesh: PopulationMesh) -> dict[str, np.ndarray]:
+        """The program over ``mesh``: pad to a multiple of its size by
+        repeating the last candidate, one copy and one program per
+        shard on its device, every shard issued in turn before the
+        first device-to-host copy, the results concatenated in
+        candidate order and the padding stripped.  One
+        ``engine.compile`` / ``engine.eval`` span carries ``shards``;
+        the first sighting of (sharded, size, padded shape) is the
+        compile call, as the JAX package keys it."""
+        m = mesh.size
+        total = n + (-n) % m
+        k = total // m
+        take = np.minimum(np.arange(total), n - 1)
+        cols = [np.asarray(c)[take] for c in cols]
+        if ap.batched:
+            ap = ap.take(torch.as_tensor(take) if isinstance(
+                ap.storage, torch.Tensor) else take)
+        shape_key = ("sharded", m, (total,) + tuple(cols[0].shape[1:]))
+        is_new = self._prog.note_compile(shape_key)
+
+        def issue(i):
+            dev = mesh.devices[i]
+            sl = slice(i * k, (i + 1) * k)
+            shard_ap = ap.take(sl) if ap.batched else ap
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                parts, ap_rows = self._upload([c[sl] for c in cols],
+                                              shard_ap, k, dev)
+                return _pack(self._prog.fn((*parts, ap_rows),
+                                           wp.device_leaves(dev)), k)
+
+        t0 = time.perf_counter()
+        with obs.span("engine.compile" if is_new else "engine.eval",
+                      kind=self.kind, workload=self.workload.name,
+                      candidates=n, shape=shape_key, shards=m):
+            packs = [issue(i) for i in range(m)]
+            layout = packs[0][1]
+            packed = np.concatenate([p.cpu().numpy() for p, _ in packs])
+        _record_seconds(is_new, time.perf_counter() - t0)
+        return _unpack(packed[:n], layout)
 
     # ------------------------------------------------------------------
     # The batched program.  Mirrors analyze_dataflow / analyze_sparse /
@@ -1234,18 +1311,57 @@ class _TracedNestModel:
         }
 
 
+def _pack(res: dict, n: int) -> tuple:
+    """A program's metric dict as one (n, w) float64 device tensor (the
+    one device-to-host copy) and its layout: ``(key, per-candidate
+    shape)`` of every block after the scalar metrics."""
+    # any further per-candidate outputs (the arch gradient's loss and
+    # gradient rows) ride in the same copy
+    extra = [k for k in res if k not in _METRICS and k != "occupancy"]
+    blocks = [torch.stack([res[k].to(F64) for k in _METRICS], 1),
+              res["occupancy"]] + [res[k].to(F64).reshape(n, -1)
+                                   for k in extra]
+    layout = [(k, tuple(res[k].shape[1:])) for k in ["occupancy"] + extra]
+    return torch.cat(blocks, dim=1), layout
+
+
+def _unpack(packed: np.ndarray, layout) -> dict[str, np.ndarray]:
+    """:func:`_pack`'s array, copied to the host, as the metric dict."""
+    n = len(packed)
+    out = {k: packed[:, i].copy() for i, k in enumerate(_METRICS)}
+    out["valid"] = out["valid"] != 0
+    j = len(_METRICS)
+    for k, shape in layout:
+        width = int(np.prod(shape, dtype=np.int64))
+        out[k] = packed[:, j: j + width].reshape((n,) + shape).copy()
+        j += width
+    return out
+
+
+def _record_seconds(is_new: bool, dt: float) -> None:
+    if is_new:
+        compile_stats.record_compile_seconds(dt)
+    else:
+        compile_stats.record_eval_seconds(dt)
+
+
 def _device_arch_rows(ap: ArchParams, dev) -> tuple:
     """An unbatched design's (storage (S, F), compute (4,)) rows on
     ``dev``, copied once per params object and device."""
-    cache = ap.__dict__.get("_device_rows")
-    if cache is None:
-        cache = {}
-        object.__setattr__(ap, "_device_rows", cache)
     key = str(dev)
-    if key not in cache:
-        cache[key] = (torch.as_tensor(ap.storage, dtype=F64, device=dev),
-                      torch.as_tensor(ap.compute, dtype=F64, device=dev))
-    return cache[key]
+    cache = ap.__dict__.get("_device_rows")
+    if cache is not None and key in cache:
+        return cache[key]
+    with _CACHE_LOCK:
+        cache = ap.__dict__.get("_device_rows")
+        if cache is None:
+            cache = {}
+            object.__setattr__(ap, "_device_rows", cache)
+        if key not in cache:
+            cache[key] = (
+                torch.as_tensor(ap.storage, dtype=F64, device=dev),
+                torch.as_tensor(ap.compute, dtype=F64, device=dev))
+        return cache[key]
 
 
 def _check_bounds(bounds, num_slots: int) -> np.ndarray:
@@ -1294,7 +1410,7 @@ class BatchedModel(_TracedNestModel):
         return self._single(b, oh, wp, ap)
 
     # ------------------------------------------------------------------
-    def evaluate(self, bounds,
+    def evaluate(self, bounds, mesh: PopulationMesh | None = None,
                  workload_params: WorkloadParams | None = None,
                  arch_params: ArchParams | None = None
                  ) -> dict[str, np.ndarray]:
@@ -1305,16 +1421,16 @@ class BatchedModel(_TracedNestModel):
         shared program (defaults to this facade's own workload);
         ``arch_params`` binds a different design's scalars — one design
         for the whole population, or (batched params) one per
-        candidate."""
+        candidate.  With a :class:`~.device.PopulationMesh` of more than
+        one shard (its first device this facade's), the candidate axis
+        is split over the mesh's devices (arch rows shard with their
+        candidates, workload params are bound once per device); the
+        population is padded by repeating its last candidate to a
+        multiple of the shard count and the padding is stripped from
+        the returned arrays."""
         bounds = _check_bounds(bounds, self.num_slots)
-        n = len(bounds)
-        wp = self._bind_params(workload_params)
-        ap = self._bind_arch(arch_params, n)
-        # count only after the params bound — a rejected population
-        # must not inflate the counters
-        compile_stats.record_batched_evals(n, shared=self.program_shared)
-        (b,), ap_rows = self._upload([bounds], ap, n)
-        return self._run(self._prog.fn, (b, ap_rows), wp, bounds.shape, n)
+        return self._evaluate([bounds], arch_params, workload_params,
+                              mesh)
 
 
 def surrogate_loss(out: dict, storage, metric: str, tau: float):
@@ -1446,6 +1562,7 @@ class BucketedModel(_TracedNestModel):
 
     # ------------------------------------------------------------------
     def evaluate(self, bounds, rank_ids,
+                 mesh: PopulationMesh | None = None,
                  workload_params: WorkloadParams | None = None,
                  arch_params: ArchParams | None = None
                  ) -> dict[str, np.ndarray]:
@@ -1453,16 +1570,12 @@ class BucketedModel(_TracedNestModel):
         (C,) metric arrays.  ``workload_params`` / ``arch_params`` bind
         another layer's or design's inputs exactly as in
         :meth:`BatchedModel.evaluate`; batched arch params put one design
-        point per candidate on this one program."""
+        point per candidate on this one program; ``mesh`` shards the
+        candidate axis exactly as in :meth:`BatchedModel.evaluate`."""
         bounds = _check_bounds(bounds, self.num_slots)
         rank_ids = _check_rank_ids(bounds, rank_ids, len(self.ranks))
-        n = len(bounds)
-        wp = self._bind_params(workload_params)
-        ap = self._bind_arch(arch_params, n)
-        compile_stats.record_batched_evals(n, shared=self.program_shared)
-        (b, ids), ap_rows = self._upload([bounds, rank_ids], ap, n)
-        return self._run(self._prog.fn, (b, ids, ap_rows), wp,
-                         bounds.shape, n)
+        return self._evaluate([bounds, rank_ids], arch_params,
+                              workload_params, mesh)
 
 
 # ----------------------------------------------------------------------

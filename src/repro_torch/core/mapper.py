@@ -185,6 +185,8 @@ def search(design: Design, workload: Workload,
     instance instead runs stochastic search over the same mapspace slice
     at the same evaluation budget (``repro_torch.search.run_search``);
     extra keyword arguments (``key=``, ``generations=``, ``pop_size=``,
+    ``mesh=`` — a ``PopulationMesh`` the population is sharded over,
+    ``"auto"`` by default (``search.runner.auto_mesh``),
     ``design_space=`` — a ``repro_torch.search.DesignSpace`` turns the
     run into (design, mapping) co-search, winner in
     ``result.best_design``, ...) pass through, and the returned result

@@ -277,7 +277,7 @@ def run_islands(design, workload: Workload,
             batch_slots=n_islands * strats[0].pop_size)
     board = _MigrantBoard(n_islands)
     evaluators = [
-        PopulationEvaluator(design, workload, enc,
+        PopulationEvaluator(design, workload, enc, mesh=None,
                             check_capacity=check_capacity, config=config,
                             device=device,
                             service=service.client(f"island{i}"))

@@ -44,8 +44,9 @@ population evaluations through the service;
 island-ES searches sharing one service (and therefore one program, and
 one first call per shape, per bucket *total*).
 
-The service runs on the devices its model facades were built for; it
-has no mesh (one card: ROADMAP Queue 1 item 6).
+The service runs on the devices its model facades were built for, and
+with ``mesh=`` (a ``PopulationMesh`` starting at that device) shards
+every coalesced invocation's candidate axis over the mesh.
 """
 from __future__ import annotations
 
@@ -153,8 +154,9 @@ class EvaluationService:
     requests are grouped by target facade (same program + same workload
     params) and evaluated as one concatenated population.
 
-    ``mesh`` accepts only None: sharding coalesced populations over a
-    device mesh is not ported (one card; ROADMAP Queue 1 item 6).
+    ``mesh`` is owned by the service — clients never shard: every
+    coalesced invocation splits its candidate axis over it
+    (``evaluate(..., mesh=)``), so the facades' device must be its first.
     ``autostart=False`` skips the background thread (tests and
     benchmarks then call :meth:`drain_once` for deterministic batching).
 
@@ -173,10 +175,7 @@ class EvaluationService:
     def __init__(self, mesh=None, batch_window_s: float = 0.002,
                  batch_slots: int | None = None,
                  max_batch: int = 65536, autostart: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: sharding the service's populations over a device "
-                "mesh is not ported (one card; ROADMAP Queue 1 item 6)")
+        self.mesh = mesh
         self.batch_window_s = float(batch_window_s)
         self.batch_slots = None if batch_slots is None else int(batch_slots)
         if self.batch_slots is not None and self.batch_slots < 1:
@@ -449,11 +448,11 @@ class EvaluationService:
                           kind=model.kind, group=group,
                           clients=clients):
                 if ids is None:
-                    res = model.evaluate(b, arch_params=ap)
+                    res = model.evaluate(b, mesh=self.mesh, arch_params=ap)
                 else:
                     res = model.evaluate(
                         b, self._pad_rows(ids[start:stop], slots),
-                        arch_params=ap)
+                        mesh=self.mesh, arch_params=ap)
             parts.append({k: v[:live] for k, v in res.items()})
         if len(parts) == 1:
             return parts[0]

@@ -25,7 +25,9 @@ its own.
   runs an all-to-all; that all-gather is counted as the all-to-all.
 * There is no trip count: each layer runs once per execution, and each
   op is seen each time it runs, which is what the reference's
-  scan-aware multiply reconstructs.
+  scan-aware multiply reconstructs.  A loop whose steps are alike may
+  run one step and count it for all (:func:`repeated`): the sLSTM does
+  so on the meta device.
 * DTensor learns an op's output shape by running it once on fake
   tensors of the global shapes; those runs are not counted.
 * With ``track_memory`` it follows the local tensors this rank
@@ -38,12 +40,14 @@ The HLO text parser has no counterpart: the port has no HLO.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import sys
 import weakref
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 from torch.utils.flop_counter import flop_registry
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -123,6 +127,8 @@ class CostMode(TorchDispatchMode):
         self._live: dict[int, int] = {}
         self._excluded: set[int] = set()
         self._now = 0
+        #: each op counts this many times (:func:`repeated`)
+        self.repeat = 1
 
     def exclude(self, tensors) -> int:
         """Take the storages of ``tensors`` (their local shards) out of
@@ -167,6 +173,7 @@ class CostMode(TorchDispatchMode):
             return func(*args, **kwargs)
         out = func(*args, **kwargs)
         c = self.costs
+        r = self.repeat
         ns = func.namespace
         if func in _DOTS or (ns == "repro_torch"
                              and func.overloadpacket in flop_registry):
@@ -177,14 +184,14 @@ class CostMode(TorchDispatchMode):
                 nb += sum(_nbytes(args[i]) for i in _DOTS[func])
             else:
                 nb += sum(_nbytes(a) for a in args)
-            c.dot_flops += flops
-            c.dot_bytes += nb
+            c.dot_flops += r * flops
+            c.dot_bytes += r * nb
             entry = c.by_op[_op_name(func)]
-            entry[0] += flops
-            entry[1] += nb
+            entry[0] += r * flops
+            entry[1] += r * nb
         elif func in _CONV:
-            c.dot_flops += 2.0 * out.numel()
-            c.by_op["convolution"][0] += 2.0 * out.numel()
+            c.dot_flops += r * 2.0 * out.numel()
+            c.by_op["convolution"][0] += r * 2.0 * out.numel()
         elif ns == "_c10d_functional" and _op_name(func) in _KINDS:
             kind = _KINDS[_op_name(func)]
             nb = sum(_nbytes(t) for t in (
@@ -194,11 +201,30 @@ class CostMode(TorchDispatchMode):
                 # all-gather and a chunk: count the all-to-all a CUDA mesh
                 # runs, whose output is as large as its input
                 kind, nb = "all-to-all", _nbytes(args[0])
-            c.collective_bytes[kind] = c.collective_bytes.get(kind, 0.0) + nb
-            c.collective_count += 1
+            c.collective_bytes[kind] = (c.collective_bytes.get(kind, 0.0)
+                                        + r * nb)
+            c.collective_count += r
         if self.track_memory:
             self._track(out)
         return out
+
+
+@contextlib.contextmanager
+def repeated(times: int):
+    """Count every op run inside the block as run ``times`` times, in
+    every :class:`CostMode` active on this thread: a loop of ``times``
+    alike steps runs one and is counted for all (0: not counted; the
+    memory count is not multiplied)."""
+    modes = [m for m in _get_current_dispatch_mode_stack()
+             if isinstance(m, CostMode)]
+    before = [m.repeat for m in modes]
+    for m in modes:
+        m.repeat *= times
+    try:
+        yield
+    finally:
+        for m, r in zip(modes, before):
+            m.repeat = r
 
 
 def analyze(fn, *args, track_memory: bool = False, **kwargs):

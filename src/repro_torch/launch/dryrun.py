@@ -215,6 +215,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         # gathered (ShardedExecution), by op name
         "gathered_ops": dict(sx.fallbacks),
     }
+    if shape.kind == "train" and "slstm" in cfg.block_pattern:
+        # the sLSTM runs one step on meta (models/ssm.py::slstm_fwd)
+        rec["memory"]["approximate"] = (
+            "the sLSTM's backward is one step standing for S: peak "
+            "within 15% of the stepped loop's at S 64")
     if verbose:
         cb = sum(v for k, v in coll.items() if k != "count")
         print(f"[ OK ] {arch:24s} {shape_name:12s} {mesh_kind:6s} "

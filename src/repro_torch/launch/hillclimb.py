@@ -3,7 +3,12 @@
 Runs any of the search strategies (hillclimb by default) over a design
 preset x matmul-layer mapspace, evaluating each generation's whole
 population through the batched engine on the CUDA card (``--device
-cpu`` runs it on the CPU):
+cpu`` runs it on the CPU).
+
+Set ``REPRO_SEARCH_DEVICES=8`` to shard the population axis over 8
+simulated devices (the shards run in turn on the one device,
+``search.runner.auto_mesh``), as the JAX package's CLI forces 8 host
+devices on the CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
       --design scnn --mkn 3136 576 64 --densities 0.4 0.55 \\
@@ -22,6 +27,7 @@ from ..core.presets import (bitmask_design, coordinate_list_design,
                             dense_design, eyeriss_like, scnn_like,
                             three_level_arch, two_level_arch)
 from ..search import STRATEGIES, run_search
+from ..search.runner import auto_mesh
 
 DESIGNS = {
     "dense": lambda: dense_design(two_level_arch()),
@@ -57,6 +63,7 @@ def main(argv: list[str] | None = None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    mesh = auto_mesh(device)
     M, K, N = args.mkn
     dA, dB = args.densities
     wl = matmul(M, K, N, densities={"A": ("uniform", dA),
@@ -69,11 +76,16 @@ def main(argv: list[str] | None = None):
 
     print(f"--- {args.strategy} on {args.design} x "
           f"matmul({M},{K},{N}) d=({dA},{dB}) ---")
-    print(f"    device={device} budget={args.budget} "
-          f"pop={args.pop} seed={args.seed}", flush=True)
+    devices = 1 if mesh is None else mesh.size
+    simulated = " (simulated)" if mesh is not None and mesh.simulated \
+        else ""
+    print(f"    device={device} devices={devices}{simulated} "
+          f"budget={args.budget} pop={args.pop} seed={args.seed}",
+          flush=True)
     t0 = time.perf_counter()
     res = run_search(design, wl, cons, strategy=args.strategy,
-                     key=args.seed, pop_size=args.pop, device=device)
+                     key=args.seed, pop_size=args.pop, mesh=mesh,
+                     device=device)
     dt = time.perf_counter() - t0
 
     for rec in res.log.records:

@@ -748,6 +748,53 @@ def per_head_shard(fn, q, k, v, *args, batch_args=(), **kwargs):
     return DTensor.from_local(out, mesh, pls, run_check=False)
 
 
+def per_head_block(fn, x, rows, heads, *args):
+    """``fn(x, *rows, *heads, *args)`` -> (B, S, H, ...) for a block of
+    per-head products over DTensors (the MLA's absorbed attention), run
+    on each rank's shard as ``local_map`` would: x (B, S, d) keeps its
+    split of B where it divides, the head weights (..., H, ... with the
+    heads at dimension 1) their split of H where it divides; each of
+    ``rows`` (B or 1, ...) is split as the batch is, or whole.  ``fn``
+    sees plain local tensors, so neither its products nor their
+    backward reshape a split dimension; gradients come back partial
+    over the splits their tensor was whole along.  The output is split
+    as x's batch and the weights' heads."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, B, H = x.device_mesh, x.shape[0], heads[0].shape[1]
+    roles = []
+    for i, n in enumerate(mesh.shape):
+        px = x.placements[i]
+        pw = heads[0].placements[i] if isinstance(heads[0], DTensor) \
+            else Replicate()
+        if isinstance(px, Shard) and px.dim == 0 and B % n == 0:
+            roles.append("batch")
+        elif isinstance(pw, Shard) and pw.dim == 1 and H % n == 0:
+            roles.append("heads")
+        else:
+            roles.append(None)
+
+    def placed(split, dim, grad_other):
+        pls = [Shard(dim) if r == split else Replicate() for r in roles]
+        grads = [Shard(dim) if r == split else
+                 (Partial() if r == grad_other else Replicate())
+                 for r in roles]
+        return pls, grads
+
+    batch_pls, batch_grads = placed("batch", 0, "heads")
+    whole = [Replicate()] * mesh.ndim
+    whole_grads = [Partial() if r else Replicate() for r in roles]
+    local_rows = [
+        _local(t, mesh, batch_pls, batch_grads) if t.shape[0] == B
+        else _local(t, mesh, whole, whole_grads) for t in rows]
+    local_heads = [_local(w, mesh, *placed("heads", 1, "batch"))
+                   for w in heads]
+    out = fn(_local(x, mesh, batch_pls, batch_grads), *local_rows,
+             *local_heads, *args)
+    out_pls = [Shard(0) if r == "batch" else
+               Shard(2) if r == "heads" else Replicate() for r in roles]
+    return DTensor.from_local(out, mesh, out_pls, run_check=False)
+
+
 def per_batch_shard(fn, params, x, *args, state=None):
     """``fn(params, x, *args, state=state)`` -> (y, new state) for a
     block whose inputs are DTensors, run on each rank's batch shard as

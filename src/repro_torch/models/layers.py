@@ -366,9 +366,9 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator, device=None) -> Params:
         wo=P(MODEL, None), kv_norm=P(None))
 
 
-def _mla_q(p, x, cfg: ModelConfig, positions):
+def _mla_q(w_q, x, cfg: ModelConfig, positions):
     m = cfg.mla
-    q = torch.einsum("bsd,dhe->bshe", x, p["w_q"].to(x.dtype))
+    q = torch.einsum("bsd,dhe->bshe", x, w_q.to(x.dtype))
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         cfg.rope_theta)
     return q[..., :m.qk_nope_head_dim], q_rope
@@ -389,16 +389,15 @@ def mla_fwd(p, x, cfg: ModelConfig, positions, cache=None, pos=None):
     (``cache`` None) returns the prompt's (c_kv, k_rope); decode
     (``cache`` (B, S, r) and (B, S, rope) with ``pos`` an int or a (B,)
     vector) writes the new entries at each slot's position IN PLACE and
-    returns the cache given."""
-    m = cfg.mla
+    returns the cache given.  On DTensors a prefill's per-head products
+    run on each rank's (batch, heads) shard
+    (``launch.sharding.per_head_block``)."""
     B, S, _ = x.shape
     if pos is None:
         q_pos = positions
     else:
         pos_vec = _pos_vec(pos, B, x.device)
         q_pos = pos_vec[:, None]
-    q_nope, q_rope = _mla_q(p, x, cfg, q_pos)
-    q_c = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"].to(x.dtype))
     c_new, kr_new = _mla_ckv(p, x, cfg, q_pos)
     if pos is None:
         c_kv, k_rope = c_new, kr_new
@@ -410,6 +409,24 @@ def mla_fwd(p, x, cfg: ModelConfig, positions, cache=None, pos=None):
         write_rows(k_rope, pos_vec, kr_new[:, 0])
         k_pos = torch.arange(c_kv.shape[1], device=x.device)
         ok = k_pos[None, None, :] <= pos_vec[:, None, None]    # (B, 1, Sk)
+    heads = (p["w_q"], p["w_uk"], p["w_uv"])
+    if pos is None and hasattr(x, "device_mesh"):
+        from ..launch.sharding import per_head_block
+        o = per_head_block(_mla_attend, x, (q_pos, c_kv, k_rope, ok),
+                           heads, cfg)
+    else:
+        o = _mla_attend(x, q_pos, c_kv, k_rope, ok, *heads, cfg)
+    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype), (c_kv, k_rope)
+
+
+def _mla_attend(x, q_pos, c_kv, k_rope, ok, w_q, w_uk, w_uv,
+                cfg: ModelConfig):
+    """The MLA's per-head products: the queries, W_uk absorbed into
+    them, scores against the compressed cache, the context and W_uv.
+    (B, S, H, v_head_dim)."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(w_q, x, cfg, q_pos)
+    q_c = torch.einsum("bshe,rhe->bshr", q_nope, w_uk.to(x.dtype))
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     s = (torch.einsum("bshr,bkr->bhsk", q_c.float(), c_kv.float())
          + torch.einsum("bshe,bke->bhsk", q_rope.float(),
@@ -417,8 +434,7 @@ def mla_fwd(p, x, cfg: ModelConfig, positions, cache=None, pos=None):
     s = s + torch.where(ok, 0.0, NEG_INF)[:, None]
     prob = torch.softmax(s, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhsk,bkr->bshr", prob, c_kv.to(x.dtype))
-    o = torch.einsum("bshr,rhe->bshe", ctx, p["w_uv"].to(x.dtype))
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype), (c_kv, k_rope)
+    return torch.einsum("bshr,rhe->bshe", ctx, w_uv.to(x.dtype))
 
 
 # ----------------------------------------------------------------------

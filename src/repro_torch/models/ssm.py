@@ -26,6 +26,7 @@ import torch
 from torch.nn.functional import silu
 
 from .config import ModelConfig
+from ..launch.costanalysis import repeated
 from ..launch.sharding import PartitionSpec as P
 from .layers import MODEL, Params, _init, apply_norm
 
@@ -33,6 +34,29 @@ from .layers import MODEL, Params, _init, apply_norm
 def _softplus(x):
     """``jax.nn.softplus``: log(1 + exp(x)) as logaddexp(x, 0)."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+class _Cumsum(torch.autograd.Function):
+    """``torch.cumsum(x, dim)`` whose backward, the reverse cumulative
+    sum, is ``total - cumsum(g) + g``: autograd's own takes it with
+    ``flip``, for which DTensor has no sharding strategy in some PyTorch
+    versions (the dry run's train cells of the recurrent families)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        ctx.dim = dim
+        return torch.cumsum(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.dim
+        return g.sum(d, keepdim=True) - torch.cumsum(g, d) + g, None
+
+
+def cumsum(x, dim: int):
+    """``torch.cumsum`` with a backward that needs no ``flip``
+    (:class:`_Cumsum`)."""
+    return _Cumsum.apply(x, dim)
 
 
 # ----------------------------------------------------------------------
@@ -53,7 +77,7 @@ def chunked_recurrence(a, q, k, v, h0, chunk: int = 128):
     h, ys = h0, []
     for c0 in range(0, S, Q):
         lac, qc, kc, vc = (t[:, c0:c0 + Q] for t in (la, q, k, v))
-        s = torch.cumsum(lac, dim=1)                         # (B,Q,H)
+        s = cumsum(lac, 1)                                   # (B,Q,H)
         total = s[:, -1:, :]                                 # (B,1,H)
         # inter-chunk: y_t += (q_t * exp(s_t)) . h
         q_dec = qc * torch.exp(s)[..., None].to(qc.dtype)
@@ -240,12 +264,23 @@ def init_slstm(cfg: ModelConfig, gen: torch.Generator,
         out_norm=P(None))
 
 
+#: run one sLSTM step for all S on the meta device (:class:`_CountedSteps`)
+STEP_ONCE_ON_META = True
+
+
 def slstm_fwd(p, x, cfg: ModelConfig, state=None):
     """state: (h, c, n, m), each (B, d); ``h`` in x's type, the rest f32.
     One step per position, in order (xLSTM eq. 15-17, stabilised).  On
     DTensors each rank runs it on its batch shard with the weights
     whole (``launch.sharding.per_batch_shard``): the loop's steps are
-    too small to split."""
+    too small to split.  On the meta device, where only shapes are
+    computed (the dry run), it runs one step and the cost count takes
+    it, and its gradient, S times (:class:`_CountedSteps`); the memory
+    count sees the S outputs the loop stacks and, under autograd, the
+    activations S positions keep for the backward.  Without autograd
+    its peak is the stepped loop's; with it, the stepped backward's
+    per-position gradients of ``pre`` are not built, so the peak is
+    approximate (within 15% at S 64, ``tests/test_torch_costcount.py``)."""
     if hasattr(x, "device_mesh"):
         from ..launch.sharding import per_batch_shard
         return per_batch_shard(slstm_fwd, p, x, cfg, state=state)
@@ -259,18 +294,92 @@ def slstm_fwd(p, x, cfg: ModelConfig, state=None):
     else:
         h, c, n, m = state
     r_w = p["r_gates"].to(x.dtype)
-    ys = []
-    for t in range(S):
-        g = (pre[:, t] + h @ r_w).float()
-        gi, gf, gz, go = g.chunk(4, dim=-1)
-        log_f = -_softplus(-gf)                             # log sigmoid
-        m_new = torch.maximum(log_f + m, gi)
-        i_s = torch.exp(gi - m_new)
-        f_s = torch.exp(log_f + m - m_new)
-        c = f_s * c + i_s * torch.tanh(gz)
-        n = f_s * n + i_s
-        h = (torch.sigmoid(go) * (c / torch.clamp_min(n, 1.0))).to(x.dtype)
-        m = m_new
-        ys.append(h)
-    y = apply_norm({"scale": p["out_norm"]}, torch.stack(ys, dim=1))
+    if STEP_ONCE_ON_META and x.device.type == "meta":
+        # the S - 1 outputs the stepped loop holds when it stacks them
+        held = x.new_empty((B, S - 1, d))
+        h, c, n, m = _CountedSteps.apply(S, x.dtype, pre[:, 0], h, c, n, m,
+                                         r_w)
+        hs = torch.cat([held, h[:, None]], dim=1)
+    else:
+        ys = []
+        for t in range(S):
+            h, c, n, m = _slstm_step(pre[:, t], h, c, n, m, r_w, x.dtype)
+            ys.append(h)
+        hs = torch.stack(ys, dim=1)
+    y = apply_norm({"scale": p["out_norm"]}, hs)
     return y @ p["w_down"].to(x.dtype), (h, c, n, m)
+
+
+class _CountedSteps(torch.autograd.Function):
+    """One sLSTM position standing for all ``S`` of a sequence on the
+    meta device, where only shapes are computed (the dry run): its
+    forward is counted S times (``costanalysis.repeated``), its
+    gradient as the stepped loop takes it: S - 1 positions with respect
+    to every input, the first only to the inputs that need one (a zero
+    initial state takes none).  Under autograd it keeps a meta buffer
+    as large as the other S - 1 positions' saved activations, so the
+    memory count holds them until the backward."""
+
+    @staticmethod
+    def forward(ctx, S, dtype, pre_t, h, c, n, m, r_w):
+        ctx.S, ctx.dtype = S, dtype
+        ins = (pre_t, h, c, n, m, r_w)
+        kept = ()
+        if any(ctx.needs_input_grad):
+            # the activations the stepped loop's other S - 1 positions
+            # keep for the backward
+            kept = (pre_t.new_empty(((S - 1) * _saved_bytes(
+                ins, ctx.needs_input_grad[2:], dtype),), dtype=torch.uint8),)
+        ctx.save_for_backward(*ins, *kept)
+        with repeated(S):
+            return _slstm_step(pre_t, h, c, n, m, r_w, dtype)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors[:6]]
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            with repeated(0):       # the stepped backward recomputes none
+                outs = _slstm_step(*ins, ctx.dtype)
+            with repeated(ctx.S - 1):
+                torch.autograd.grad(outs, ins, grads, allow_unused=True,
+                                    retain_graph=True)
+            got = iter(torch.autograd.grad(
+                outs, [t for t, w in zip(ins, need) if w], grads,
+                allow_unused=True))
+        return (None, None) + tuple(next(got) if w else None
+                                    for w in need)
+
+
+def _saved_bytes(ins, need, dtype) -> int:
+    """The bytes autograd keeps for one sLSTM position's backward,
+    beyond its inputs (one uncounted step run to see them)."""
+    ins = [t.detach().requires_grad_(w) for t, w in zip(ins, need)]
+    seen = {t.untyped_storage()._cdata for t in ins}
+    saved = []
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st._cdata not in seen:
+            seen.add(st._cdata)
+            saved.append(st.nbytes())
+        return t
+
+    with torch.enable_grad(), repeated(0), \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        _slstm_step(*ins, dtype)
+    return sum(saved)
+
+
+def _slstm_step(pre_t, h, c, n, m, r_w, dtype):
+    """One sLSTM position: (h, c, n, m) after it."""
+    g = (pre_t + h @ r_w).float()
+    gi, gf, gz, go = g.chunk(4, dim=-1)
+    log_f = -_softplus(-gf)                                 # log sigmoid
+    m_new = torch.maximum(log_f + m, gi)
+    i_s = torch.exp(gi - m_new)
+    f_s = torch.exp(log_f + m - m_new)
+    c = f_s * c + i_s * torch.tanh(gz)
+    n = f_s * n + i_s
+    h = (torch.sigmoid(go) * (c / torch.clamp_min(n, 1.0))).to(dtype)
+    return h, c, n, m_new

@@ -12,7 +12,8 @@ fast" into "find good mappings fast" (SparseMap, arXiv 2508.12906):
   * :mod:`strategies` — RandomSearch / HillClimb / SimulatedAnnealing /
     EvolutionStrategy, every draw from an explicit ``torch.Generator``
   * :mod:`runner`     — population evaluation through the batched engine
-    on the CUDA card (or the CPU when ``device="cpu"``), scalar-oracle
+    on the CUDA card (or the CPU when ``device="cpu"``), sharded over a
+    ``PopulationMesh`` when asked (``population_mesh``), scalar-oracle
     validation of the winner
   * :mod:`fused`      — device-resident ES: the whole ask -> decode ->
     evaluate -> tell generation as one captured CUDA graph, replayed
@@ -32,7 +33,7 @@ from .fused import (ChunkAbsorber, FusedProgram, fused_supported,
                     get_fused_program)
 from .log import GenerationRecord, SearchLog
 from .runner import (KNOWN_SEARCH_ENV, PopulationEvaluator, SearchConfig,
-                     run_search, validate_search_env)
+                     population_mesh, run_search, validate_search_env)
 from .strategies import (STRATEGIES, EvolutionStrategy, HillClimb,
                          RandomSearch, SimulatedAnnealing, Strategy,
                          crossover, make_strategy, mutate)
@@ -45,7 +46,7 @@ __all__ = [
     "get_fused_program",
     "GenerationRecord", "SearchLog",
     "KNOWN_SEARCH_ENV", "PopulationEvaluator", "SearchConfig",
-    "run_search", "validate_search_env",
+    "population_mesh", "run_search", "validate_search_env",
     "STRATEGIES", "EvolutionStrategy", "HillClimb", "RandomSearch",
     "SimulatedAnnealing", "Strategy", "crossover", "make_strategy",
     "mutate",

@@ -292,9 +292,12 @@ class FusedProgram:
         else:
             self.num_map_genes = G
             base = bm.arch_params
-        self._base_storage = torch.as_tensor(
+        # copies, never views: ``_bind`` writes the bound facade's rows
+        # in here, and on the CPU ``as_tensor`` would share the first
+        # facade's own numpy rows
+        self._base_storage = torch.tensor(
             np.asarray(base.storage, np.float64), device=dev)
-        self._base_comp = torch.as_tensor(
+        self._base_comp = torch.tensor(
             np.asarray(base.compute, np.float64), device=dev)
 
     def _const(self, key, make):

@@ -44,12 +44,23 @@ scalars are program inputs and programs are keyed by topology.  The
 archive walk then validates each candidate under its own design, and
 the winner's design is returned as ``SearchResult.best_design``.
 
+Population sharding (``run_search(mesh=)``): with a
+:class:`~repro_torch.core.device.PopulationMesh` of more than one shard
+every batched evaluation splits its candidate axis over the mesh's
+devices (``BucketedModel.evaluate(..., mesh=)``).  :func:`population_mesh`
+builds one: every visible card when there are two or more, a simulated
+mesh of ``REPRO_SEARCH_DEVICES`` shards on one device, else None (the
+single-device path).  The default, ``mesh="auto"`` (:func:`auto_mesh`),
+takes only the simulated mesh: sharding over real cards is asked for
+with ``mesh=population_mesh()``, since on four H100s it lost to one card
+at every population measured (PERF.md).  Sharding changes no number: the
+logs of a sharded and an unsharded run are identical.
+
 Two other routes: ``fused=True`` runs an eligible ES device-resident
 (``search.fused``: one captured CUDA graph per generation, replayed for
-a chunk of generations), and ``service=`` sends every batched evaluation
-through a ``repro_torch.dse`` evaluation service.  Not carried over
-from the JAX package: sharding the population over a device mesh (one
-card; ROADMAP Queue 1 item 6), which raises ``NotImplementedError``.
+a chunk of generations, on one device), and ``service=`` sends every
+batched evaluation through a ``repro_torch.dse`` evaluation service,
+which owns the mesh.
 """
 from __future__ import annotations
 
@@ -64,7 +75,7 @@ import torch
 from .. import obs
 from ..core import compile_stats
 from ..core.batched import batched_supported
-from ..core.device import resolve_device
+from ..core.device import PopulationMesh, resolve_device
 from ..core.engine import Sparseloop
 from ..core.mapper import MapspaceConstraints, SearchResult, _validated_result
 from ..core.workload import Workload
@@ -77,6 +88,42 @@ METRICS = ("edp", "cycles", "energy_pj")
 
 #: archive depth for the final scalar-oracle validation walk
 ARCHIVE_SIZE = 32
+
+
+def population_mesh(min_devices: int = 2,
+                    device=None) -> PopulationMesh | None:
+    """A mesh to shard populations over (``run_search(mesh=)``).
+
+    ``REPRO_SEARCH_DEVICES=n`` gives n simulated shards on ``device``
+    (the counterpart of the JAX package's forced host devices);
+    otherwise, on a CUDA ``device`` with at least ``min_devices`` cards
+    visible, a mesh over every card, ``device`` first; otherwise None,
+    the single-device path.  ``device`` None is the CUDA card, and
+    raises without CUDA, as every entry point does."""
+    dev = resolve_device(device)
+    n = _env_int("REPRO_SEARCH_DEVICES", 0)
+    if n:
+        if n < 1:
+            raise ValueError(f"REPRO_SEARCH_DEVICES must be >= 1, got {n}")
+        return PopulationMesh((dev,) * n) if n >= min_devices else None
+    if dev.type != "cuda" or torch.cuda.device_count() < min_devices:
+        return None
+    others = [torch.device("cuda", i)
+              for i in range(torch.cuda.device_count()) if i != dev.index]
+    return PopulationMesh((dev, *others))
+
+
+def auto_mesh(device=None) -> PopulationMesh | None:
+    """What ``mesh="auto"`` resolves to: :func:`population_mesh`'s
+    simulated mesh when ``REPRO_SEARCH_DEVICES`` is set, else None.  A
+    mesh over real cards is not taken by default: on four H100s the
+    sharded engine lost to one card at every population measured
+    (PERF.md), so it is asked for with ``mesh=population_mesh()``.
+    ``device`` None is the CUDA card, and raises without CUDA."""
+    dev = resolve_device(device)
+    if not _env_int("REPRO_SEARCH_DEVICES", 0):
+        return None
+    return population_mesh(device=dev)
 
 
 #: default for ``SearchConfig.batch_threshold``: the smallest group
@@ -96,6 +143,8 @@ KNOWN_SEARCH_ENV = {
         "smallest group worth a compile (SearchConfig.batch_threshold)",
     "REPRO_SEARCH_BUCKETED":
         "bucketed dispatch toggle (SearchConfig.bucketed)",
+    "REPRO_SEARCH_DEVICES":
+        "simulated shard count of population_mesh (run_search's mesh)",
     "REPRO_SEARCH_FUSED":
         "device-resident fused ES toggle (SearchConfig.fused)",
     "REPRO_SEARCH_FUSED_CHUNK":
@@ -192,20 +241,27 @@ class PopulationEvaluator:
     density kind (actual-data included) batched.  Fallbacks:
     per-template grouping (``config.bucketed=False``) and the
     per-candidate scalar path for groups below
-    ``config.batch_threshold``.  With ``service`` (a ``repro_torch.dse``
+    ``config.batch_threshold``.  ``mesh`` (a ``PopulationMesh`` whose
+    first device is ``device``) shards each batched evaluation's
+    candidate axis.  With ``service`` (a ``repro_torch.dse``
     ``ServiceClient`` or ``EvaluationService``) batched evaluations are
     submitted as population requests instead of run inline, so
     concurrent searches coalesce into shared program invocations.
     """
 
     def __init__(self, design, workload: Workload, enc: MapspaceEncoding,
+                 mesh: PopulationMesh | None = None,
                  check_capacity: bool = True,
                  config: SearchConfig | None = None, device=None,
                  service=None):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.devices[0] != self.device:
+            raise ValueError(f"mesh {mesh} does not start at the "
+                             f"search's device {self.device}")
         self.model = Sparseloop(design, device=self.device)
         self.workload = workload
         self.enc = enc
+        self.mesh = mesh
         self.check_capacity = check_capacity
         self.config = config or SearchConfig()
         self.service = service
@@ -306,8 +362,8 @@ class PopulationEvaluator:
             return self.service.evaluate(bm, bounds, rank_ids=ids,
                                          arch_params=ap)
         if ids is None:
-            return bm.evaluate(bounds, arch_params=ap)
-        return bm.evaluate(bounds, ids, arch_params=ap)
+            return bm.evaluate(bounds, mesh=self.mesh, arch_params=ap)
+        return bm.evaluate(bounds, ids, mesh=self.mesh, arch_params=ap)
 
     def __call__(self, genomes: np.ndarray) -> dict[str, np.ndarray]:
         n = len(genomes)
@@ -451,7 +507,7 @@ def run_search(design, workload: Workload,
                key: "int | torch.Generator" = 0,
                generations: int | None = None,
                metric: str = "edp",
-               mesh=None,
+               mesh="auto",
                check_capacity: bool = True,
                config: SearchConfig | None = None,
                batch_threshold: int | None = None,
@@ -476,6 +532,18 @@ def run_search(design, workload: Workload,
     and the winner's re-validation run on the host.  ``config`` (a
     :class:`SearchConfig`) controls dispatch; ``batch_threshold`` is a
     convenience override of its field of the same name.
+
+    ``mesh`` shards every batched evaluation's candidate axis over a
+    :class:`~repro_torch.core.device.PopulationMesh`; ``"auto"`` (the
+    default) is :func:`auto_mesh` on ``device``: ``REPRO_SEARCH_DEVICES``
+    simulated shards where that is set, else None, the single-device
+    path, also on a machine with several cards (pass
+    ``mesh=population_mesh()`` to shard over them; it was slower on four
+    H100s at every size measured).  With only ``mesh`` given the run's
+    device is its first
+    device; a ``device`` that is not raises.  A ``service`` owns the
+    devices and forces the mesh to None.  The log does not depend on
+    the mesh.
 
     ``design_space`` (a :class:`DesignSpace`) turns the run into
     (design, mapping) CO-SEARCH: genomes grow one gene per provisioning
@@ -506,7 +574,8 @@ def run_search(design, workload: Workload,
     device-resident: the whole ask -> decode -> evaluate -> tell
     generation is one captured CUDA graph on the card (eager steps on
     the CPU), replayed ``config.fused_chunk`` times between two
-    device-to-host copies (``search.fused``).  Eligible = an
+    device-to-host copies (``search.fused``), on one device: the fused
+    path ignores the mesh.  Eligible = an
     EvolutionStrategy on the bucketed batched path with device-decoded
     design knobs; anything else (hillclimb/annealing, sub-threshold
     populations, knobs on static fields, topology co-search) takes the
@@ -514,17 +583,18 @@ def run_search(design, workload: Workload,
     ``sgd_lr > 0`` adds the hybrid ES+SGD step on co-search design
     genes inside the generation (log-space Lamarckian nudge against the
     smooth capacity-surrogate loss, temperature ``sgd_tau``).
-
-    Not ported, and raising ``NotImplementedError`` rather than falling
-    back: ``mesh=`` (population sharding; one card, ROADMAP Queue 1
-    item 6).
     """
     if metric not in METRICS:
         raise ValueError(f"metric must be one of {METRICS}, got {metric!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sharding the population over a device mesh is not "
-            "ported (one card; ROADMAP Queue 1 item 6)")
+    if service is not None:
+        mesh = None        # the service owns the devices
+    elif isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be a PopulationMesh, None or "
+                             f"'auto', got {mesh!r}")
+        mesh = auto_mesh(device)
+    if mesh is not None and device is None:
+        device = mesh.devices[0]
     config = config or SearchConfig()
     if batch_threshold is not None:
         config = dataclasses.replace(config,
@@ -545,7 +615,7 @@ def run_search(design, workload: Workload,
             workload, design.arch.num_levels, cons, design_space, design)
     else:
         enc = MapspaceEncoding(workload, design.arch.num_levels, cons)
-    evaluate = PopulationEvaluator(design, workload, enc,
+    evaluate = PopulationEvaluator(design, workload, enc, mesh=mesh,
                                    check_capacity=check_capacity,
                                    config=config, device=device,
                                    service=service)

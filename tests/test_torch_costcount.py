@@ -108,3 +108,76 @@ def test_world1_count_equals_reference(arch, kind):
         return
     assert abs(got.dot_flops - want.dot_flops) <= 0.03 * want.dot_flops
     assert got.dot_flops - want.dot_flops == GAPS.get((arch, kind), 0)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_meta_slstm_counts_one_step_s_times(kind):
+    """On the meta device the sLSTM runs one step and the count takes it
+    and its gradient S times (``ssm._CountedSteps``): xlstm's prefill
+    and train step of S 64 count on meta exactly what the stepped loop
+    counts on the CPU."""
+    from repro_torch.launch.dryrun import world1_costs
+    cfg = get_config("xlstm-350m", reduced=True)
+    meta = world1_costs(cfg, steps.ShapeSpec(f"{kind}_64", kind, S, B))
+    stepped = _port("xlstm-350m", kind)
+    assert meta.dot_flops == stepped.dot_flops > 0
+    assert meta.dot_bytes == stepped.dot_bytes
+    assert dict(meta.by_op) == dict(stepped.by_op)
+
+
+def _meta_peak(monkeypatch, fn, once: bool) -> int:
+    """``fn()``'s peak temporary bytes under ``CostMode`` on the meta
+    device, the sLSTM run one step for S (``once``) or stepped."""
+    from repro_torch.launch.costanalysis import CostMode
+    from repro_torch.launch.sharding import ShardedExecution
+    from repro_torch.models import ssm
+    monkeypatch.setattr(ssm, "STEP_ONCE_ON_META", once)
+    with CostMode(track_memory=True) as cm, ShardedExecution():
+        fn(cm)
+    return cm.costs.peak_temp_bytes
+
+
+@pytest.mark.parametrize("scope", ["step", "slstm"])
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_meta_slstm_memory_follows_the_stepped_loop(monkeypatch, kind,
+                                                    scope):
+    """The memory count of the one-step sLSTM on meta against the
+    stepped loop on meta at S 64, for xlstm's whole step and for the
+    sLSTM alone (where it sets the peak): equal without autograd; with
+    it (the backward), within 15%: the stepped backward's per-position
+    full-size gradients of ``pre`` are not built."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ssm
+    cfg = get_config("xlstm-350m", reduced=True)
+    train = kind == "train"
+    if scope == "step":
+        shape = steps.ShapeSpec(f"{kind}_64", kind, S, B)
+
+        def fn(cm):
+            model, _ = steps.abstract_params(cfg)
+            inputs = {"params": model,
+                      "batch": steps.abstract_batch(cfg, shape)[0]}
+            if train:
+                inputs["opt_state"] = adamw_init(model)
+            step, args = dryrun._step(cfg, shape, "full", inputs)
+            step(*args)
+    else:
+        def fn(cm):
+            p = ssm.init_slstm(cfg, torch.Generator().manual_seed(0),
+                               device="meta")
+            p = {k: v.requires_grad_(train)
+                 for k, v in p._parameters.items()}
+            x = torch.empty((B, S, cfg.d_model), device="meta",
+                            requires_grad=train)
+            cm.exclude([x, *p.values()])
+            with torch.set_grad_enabled(train):
+                y, _ = ssm.slstm_fwd(p, x, cfg)
+                if train:
+                    y.sum().backward()
+    once = _meta_peak(monkeypatch, fn, True)
+    stepped = _meta_peak(monkeypatch, fn, False)
+    assert stepped > 0
+    if train:
+        assert abs(once - stepped) <= 0.15 * stepped
+    else:
+        assert once == stepped

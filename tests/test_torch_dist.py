@@ -390,6 +390,70 @@ def test_sharded_training_equals_unsharded(mesh_shape, tmp_path):
     assert err["mu_split"] == (mesh_shape == (2, 1)), err
 
 
+def _mla_rank_main(rank, port_dir, mesh_shape, out):
+    """Reduced deepseek-v2-lite's loss and gradients on 2 gloo ranks: the
+    MLA's per-head products run per (batch, heads) shard
+    (``sharding.per_head_block``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{port_dir}/store",
+                            rank=rank, world_size=2)
+    try:
+        cfg = get_config("deepseek-v2-lite-16b", reduced=True)
+        api = get_api(cfg)
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, 32)).astype(np.int32))
+            for k in ("tokens", "targets")}
+        plain = api.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        specs = param_specs(plain)
+        loss_fn = steps.make_loss_fn(cfg)
+        plain.requires_grad_(True)
+        want_loss = loss_fn(plain, batch)
+        want_loss.backward()
+        want = {n: p.grad.clone() for n, p in plain.named_parameters()}
+        mesh = init_device_mesh("cpu", mesh_shape,
+                                mesh_dim_names=("data", "model"))
+        model = shard_tree(api.init(cfg, torch.Generator().manual_seed(0),
+                                    "cpu"), specs, mesh)
+        sb = shard_tree(batch, {k: batch_spec(mesh, 4) for k in batch},
+                        mesh)
+        model.requires_grad_(True)
+        with ShardedExecution():
+            loss = loss_fn(model, sb)
+            loss.backward()
+        err = {"loss": abs(float(loss.detach().full_tensor())
+                           - float(want_loss)),
+               "grad": max(float((p.grad.full_tensor() - want[n]).abs()
+                                 .max()) / max(float(want[n].abs().max()),
+                                               1e-30)
+                           for n, p in model.named_parameters()
+                           if "attn" in n)}
+        if rank == 0:
+            (pathlib.Path(port_dir) / out).write_text(json.dumps(err))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 1)])
+def test_sharded_mla_gradients_equal_unsharded(mesh_shape, tmp_path):
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mla_rank_main,
+                         args=(r, str(tmp_path), mesh_shape, "err.json"))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=240)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    err = json.loads((tmp_path / "err.json").read_text())
+    assert err["loss"] <= 1e-5 and err["grad"] <= 1e-5, err
+
+
 # ----------------------------------------------------------------------
 # The dry run and the roofline
 # ----------------------------------------------------------------------

@@ -31,6 +31,7 @@ stats = pytest.importorskip("scipy.stats")
 
 import torch_reference as R  # noqa: E402
 from repro_torch.core import Sparseloop, compile_stats  # noqa: E402
+from repro_torch.core.arch import pack_arch_params  # noqa: E402
 from repro_torch.core.batched import clear_caches  # noqa: E402
 from repro_torch.core.mapper import MapspaceConstraints  # noqa: E402
 from repro_torch.core.presets import (coordinate_list_design,  # noqa: E402
@@ -242,6 +243,11 @@ def test_programs_follow_their_facade():
                             fused=True, device=CPU)
     assert st.compiles_by_kind.get("fused", 0) == 0      # program shared
     assert shared.log.to_json(timing=False) == alone
+    # binding the second design left the first design's facade alone
+    bm = Sparseloop(DESIGN, device=CPU).bucketed_model(
+        WL, MapspaceEncoding(WL, 2, CONS).bucket)
+    np.testing.assert_array_equal(
+        bm.arch_params.storage, pack_arch_params(DESIGN.arch).storage)
 
 
 def test_inject_folds_migrants_as_tell():

@@ -312,16 +312,13 @@ def test_validated_result_skips_oracle_rejected_candidates():
 
 
 # ----------------------------------------------------------------------
-# what is not ported raises, the fused and service routes run; the
-# environment is validated
+# the fused and service routes run; the environment is validated
 # ----------------------------------------------------------------------
 def test_unported_routes_raise(monkeypatch):
-    """``mesh=`` is the one route left unported (item 6) and raises;
-    ``fused=True``, ``REPRO_SEARCH_FUSED=1`` and ``service=`` run, the
-    fused runs byte-identical from one seed."""
+    """No route raises any more: ``fused=True``, ``REPRO_SEARCH_FUSED=1``
+    and ``service=`` run, the fused runs byte-identical from one seed
+    (the sharded route is held by ``test_torch_popmesh.py``)."""
     from repro_torch.dse import EvaluationService
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run_search(DESIGN, WL, CONS, mesh="auto", device=CPU)
     fused = [run_search(DESIGN, WL, CONS, fused=True, device=CPU)
              for _ in range(2)]
     assert fused[0].log.timing["fused"] is True
@@ -370,25 +367,26 @@ def test_search_env_is_validated(monkeypatch):
 @pytest.mark.parametrize("name", ["REPRO_SEARCH_FUSED_CHUNK",
                                   "REPRO_SEARCH_DEVICES"])
 def test_settings_that_configure_nothing_here_warn(monkeypatch, name):
-    """``REPRO_SEARCH_FUSED_CHUNK`` sets the fused search's chunk and is
-    accepted silently; the JAX package's host-device count
-    (``REPRO_SEARCH_DEVICES``) has nothing to set in the port (one
-    card): setting it warns as unknown instead of being accepted
-    silently."""
+    """Both settings configure something in the port and are accepted
+    silently: ``REPRO_SEARCH_FUSED_CHUNK`` sets the fused search's
+    chunk, ``REPRO_SEARCH_DEVICES`` the simulated shard count of
+    ``population_mesh`` (the JAX package's forced host devices); a
+    malformed value raises."""
+    from repro_torch.search import population_mesh
     monkeypatch.setenv(name, "8")
-    if name == "REPRO_SEARCH_FUSED_CHUNK":
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            cfg = SearchConfig()
-        assert cfg.fused_chunk == 8
-        monkeypatch.setenv(name, "eight")
-        with pytest.raises(ValueError, match="must be an integer"):
-            SearchConfig()
-        return
-    with pytest.warns(UserWarning, match=f"unknown environment variable "
-                                         f"{name}"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         cfg = SearchConfig()
-    assert cfg.fused_chunk == 16
+    if name == "REPRO_SEARCH_FUSED_CHUNK":
+        assert cfg.fused_chunk == 8
+    else:
+        assert cfg.fused_chunk == 16
+        mesh = population_mesh(device=CPU)
+        assert mesh.size == 8 and mesh.simulated
+    monkeypatch.setenv(name, "eight")
+    with pytest.raises(ValueError, match="must be an integer"):
+        SearchConfig() if name == "REPRO_SEARCH_FUSED_CHUNK" \
+            else population_mesh(device=CPU)
 
 
 def test_entry_points_need_cuda_or_cpu(monkeypatch):

@@ -145,11 +145,6 @@ def test_evaluation_errors_fan_out_to_every_future():
     svc.close()
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        EvaluationService(mesh=object(), autostart=False)
-
-
 # ----------------------------------------------------------------------
 # multi-tenant accounting
 # ----------------------------------------------------------------------

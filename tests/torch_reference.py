@@ -55,9 +55,11 @@ with open({out_json!r}, "w") as f:
 
 
 def run_reference(code: str, inputs: dict | None = None,
-                  timeout: int = 600) -> dict:
+                  timeout: int = 600, env: dict | None = None) -> dict:
     """Run ``code`` against the JAX package in a subprocess (CPU, with
-    the ``enable_x64`` alias) and return its ``OUT`` dict."""
+    the ``enable_x64`` alias) and return its ``OUT`` dict.  ``env`` adds
+    to the subprocess's environment (``XLA_FLAGS`` to force host
+    devices)."""
     with tempfile.TemporaryDirectory() as tmp:
         paths = {k: os.path.join(tmp, k) for k in
                  ("inp.npz", "out.npz", "out.json")}
@@ -66,11 +68,12 @@ def run_reference(code: str, inputs: dict | None = None,
                   + textwrap.dedent(code)
                   + _EPILOGUE.format(out_npz=paths["out.npz"],
                                      out_json=paths["out.json"]))
-        env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   PYTHONPATH=os.pathsep.join(
-                       [os.path.join(ROOT, "src"), ROOT]))
+        full_env = dict(os.environ, JAX_PLATFORMS="cpu",
+                        PYTHONPATH=os.pathsep.join(
+                            [os.path.join(ROOT, "src"), ROOT]),
+                        **(env or {}))
         proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                              env=env, capture_output=True, text=True,
+                              env=full_env, capture_output=True, text=True,
                               timeout=timeout)
         if proc.returncode != 0:
             raise RuntimeError(f"reference subprocess failed:\n"
