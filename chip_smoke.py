@@ -46,6 +46,19 @@ JAX package.  Phases, in order — any failure raises and exits non-zero:
    (bf16 tensor cores or f32 FMA), and every K4 variant's registers,
    local memory, shared memory, resident blocks per SM and spills are
    printed;
+3a. shapes: each kernel over the shape classes it takes since the
+   kernels widened (``SHAPE_BLOCK``, ``SHAPE_NM``, ``SHAPE_FLASH``:
+   decodes at batch 1 to 7, ragged rows, K1/K2 blocks of 8 to 48 k rows
+   and 16 to 512 columns, N:M patterns that are not compiled and N not a
+   multiple of 16, K4 head dims 8 to 256) and over the JAX package's own
+   kernel test shapes, every call through its wrapper (one launch each,
+   counted), held to its plain version and a repeat launch to the same
+   bits; then timed, with bound and library call: qwen2-0.5b's decode at
+   batch 1 (``ffn_gate_up`` and ``lm_head``: K1/K2 in f32 at 64-blocks
+   and density 0.25, K3 in bf16 at 2:4 with int8 and packed offsets,
+   against ``torch.matmul``) and K4 in bf16, causal, at phi-2's (1, 2048,
+   32, 32, 80), phi-3-mini's (D 96) and gemma-7b's (1, 2048, 16, 16,
+   256) head shapes, against SDPA;
 4. model: the whole mapspace of each of the four ResNet50 layers
    (833,400 candidates) searched on the card through ``mapper.search``;
    each winner re-validated by the scalar oracle, 512 sampled
@@ -210,6 +223,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.kernels.nm_spmm.ops import NM_PAIRS  # noqa: E402
 from repro_torch.launch import roofline as _roofline  # noqa: E402
 
 #: qwen2-0.5b (hidden 896, intermediate 4864, vocab 151936), decode at
@@ -253,6 +267,73 @@ FLASH_CELLS = (
     ("llama4_refill", 1, 512, 40, 8, 128, torch.bfloat16, True),
     ("internvl2_prefill", 4, 512, 64, 8, 128, torch.bfloat16, True),
     ("whisper_dec_prefill", 8, 128, 8, 8, 64, torch.bfloat16, True),
+)
+#: the shapes phase (3a): the shape classes the kernels take since they
+#: widened, each held to its plain version with a repeat launch, and the
+#: JAX package's own kernel test shapes (tests/test_kernels.py,
+#: tests/test_flash_attention.py).  K1/K2: (M, K, N, bm, bk, bn, dtype):
+#: decodes at batch 1 to 7, a ragged bf16 M on the wide path, blocks of
+#: 8 to 48 k rows, 16- to 512-column blocks; then the reference's 32 x
+#: 128 x 128 in 32-blocks
+SHAPE_BLOCK = (
+    (1, 896, 9728, 1, 64, 64, torch.bfloat16),
+    (3, 896, 9728, 3, 64, 64, torch.float32),
+    (40, 512, 1024, 40, 64, 256, torch.bfloat16),
+    (96, 384, 512, 32, 128, 256, torch.bfloat16),
+    (5, 256, 256, 5, 8, 16, torch.float32),
+    (24, 192, 96, 8, 16, 48, torch.bfloat16),
+    (72, 240, 160, 8, 24, 32, torch.bfloat16),
+    (7, 480, 512, 7, 48, 512, torch.float32),
+    (32, 128, 128, 32, 32, 32, torch.float32),
+    (32, 128, 128, 32, 32, 32, torch.bfloat16),
+)
+#: K3: (M, K, N, n, m, dtype, packed, (bm, bk, bn)): decodes at batch 1
+#: to 7, N not a multiple of 16 (16-byte aligned rows on the narrow path,
+#: unaligned ones on the general path), patterns that are not compiled
+#: (the general path, m up to 16); then the reference's own shapes: 32 x
+#: 12m x 64 at each compiled pattern (``NM_PAIRS``, the reference's
+#: tests' set; bk 3m, bn 32), the 64 x 64 x 64
+#: block sweep, packed 32 x 16m x 64 (bk 4m)
+SHAPE_NM = (
+    (1, 896, 9728, 2, 4, torch.bfloat16, False, None),
+    (3, 896, 9728, 2, 4, torch.float32, True, None),
+    (3, 64, 40, 2, 4, torch.float32, False, None),
+    (7, 256, 20, 2, 4, torch.bfloat16, True, None),
+    (70, 512, 100, 2, 8, torch.bfloat16, False, None),
+    (1, 64, 64, 3, 4, torch.float32, False, None),
+    (5, 48, 24, 1, 2, torch.bfloat16, True, None),
+    (9, 512, 1000, 5, 8, torch.float32, True, None),
+    (40, 448, 384, 7, 16, torch.bfloat16, True, None),
+    (128, 1536, 768, 3, 12, torch.bfloat16, False, None),
+) + tuple((32, 12 * m, 64, n, m, dt, False, (32, 3 * m, 32))
+          for n, m in NM_PAIRS for dt in (torch.float32, torch.bfloat16)
+          ) + tuple((64, 64, 64, 2, 4, torch.float32, False, t)
+                    for t in ((16, 8, 32), (32, 16, 16), (64, 32, 64))
+                    ) + tuple((32, 16 * m, 64, n, m, torch.float32, True,
+                               (32, 4 * m, 32))
+                              for n, m in ((2, 4), (2, 8), (1, 4)))
+#: K4: (B, S, H, KV, D, dtype, causal, (bq, bk)): every compiled width and
+#: head dims between them, f32 and bf16; then the reference's own shapes
+SHAPE_FLASH = tuple(
+    (1, 192, 6, 2, D, dt, causal, (64, 64))
+    for D in (8, 40, 48, 64, 72, 80, 96, 112, 136, 160, 192, 256)
+    for dt in (torch.float32, torch.bfloat16) for causal in (True, False)
+) + tuple((2, S, 4, 4, 64, dt, True, t)
+          for S, t in ((128, (64, 64)), (128, (32, 64)), (256, (128, 32)))
+          for dt in (torch.float32, torch.bfloat16)) + (
+    (1, 128, 8, 2, 32, torch.float32, True, (64, 64)),
+    (1, 128, 8, 2, 32, torch.float32, False, (64, 64)),
+    (2, 128, 4, 4, 32, torch.float32, True, (64, 64)))
+#: the shapes phase's timed cells: qwen2-0.5b decode at batch 1 (K1/K2 in
+#: f32, 64-blocks at density 0.25; K3 in bf16 at 2:4), and K4 (bf16,
+#: causal) at phi-2's, phi-3-mini's and gemma-7b's head shapes (shapes
+#: only, no configuration)
+DECODE_CELLS = (("ffn_gate_up_b1", 1, 896, 9728),
+                ("lm_head_b1", 1, 896, 151936))
+HEAD_CELLS = (
+    ("phi2_heads", 1, 2048, 32, 32, 80, torch.bfloat16, True),
+    ("phi3_mini_heads", 1, 2048, 32, 32, 96, torch.bfloat16, True),
+    ("gemma7b_heads", 1, 2048, 16, 16, 256, torch.bfloat16, True),
 )
 #: the serve phase: qwen2-0.5b at full width
 SERVE = dict(arch="qwen2-0.5b", batch=8, prompt_len=512, gen=32,
@@ -780,14 +861,139 @@ def phase_flash_kernels(device="cuda", cells=FLASH_CELLS, timed=True
     return rows
 
 
+def _counted(wrapper, calls: int, fn, device):
+    """``fn()``, asserting that it launched ``wrapper``'s kernel exactly
+    ``calls`` times on the card (on the CPU: never)."""
+    before = wrapper.launches
+    out = fn()
+    want = calls if device != "cpu" else 0
+    if wrapper.launches - before != want:
+        raise AssertionError(f"{wrapper.__name__} launched "
+                             f"{wrapper.launches - before} times, not "
+                             f"{want}")
+    return out
+
+
+def _shape_row(name, shape, dtype, got, again, want, tol_dtype,
+               bf16_tol=None, **extra) -> dict:
+    """One untimed shape-class row: the error against the plain version
+    and whether a repeat launch gave the same bits; raises unless both
+    hold."""
+    err, rel, ok = _compare(got, want, tol_dtype, bf16_tol)
+    row = {"cell": "class", "shape": list(shape),
+           "dtype": str(dtype).replace("torch.", ""), **extra,
+           "max_abs_err": err, "rel_err": rel,
+           "repeat_bit_identical": bool(torch.equal(got, again))}
+    if not ok or not row["repeat_bit_identical"]:
+        raise AssertionError(f"{name} at a new shape class: {row}")
+    print(f"[shapes] {name} {row}")
+    return row
+
+
+def phase_shapes(device="cuda", timed=True, block=SHAPE_BLOCK,
+                 nm=SHAPE_NM, flash=SHAPE_FLASH, decode=DECODE_CELLS,
+                 heads=HEAD_CELLS) -> dict:
+    """Every kernel over the shape classes it takes since it widened and
+    over the JAX package's own kernel test shapes, each call through the
+    wrapper (counted: one launch a call), against its plain version (K1
+    to K3 at F32_TOL of the largest magnitude in both types, K4 bf16 at
+    FLASH_BF16_TOL) with a repeat launch held to the same bits; then the
+    timed cells (``phase_kernels``, ``phase_nm_kernels``,
+    ``phase_flash_kernels``): qwen2-0.5b's decode at batch 1 and K4 at
+    three models' head shapes.  Returns rows per kernel."""
+    from repro_torch.kernels.block_mm.ops import (block_indices, block_list,
+                                                  gated_mm, gated_mm_plain,
+                                                  skip_mm, skip_mm_plain)
+    from repro_torch.kernels.block_mm.ops import plan as block_plan
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain, kernel_info)
+    from repro_torch.kernels.nm_spmm.ops import nm_spmm, nm_spmm_plain
+    from repro_torch.kernels.nm_spmm.ops import plan as nm_plan
+    from repro_torch.sparsity import nm_prune_dense, pack_nm, pack_offsets
+    rows = {"skip_mm": [], "gated_mm": [], "nm_spmm": [],
+            "flash_attention": []}
+    for M, K, N, bm, bk, bn, dtype in block:
+        rng = np.random.default_rng(M + K + N)
+        a, w = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                .to(device, dtype) for sh in ((M, K), (K, N)))
+        mask = (rng.random((K // bk, N // bn)) < 0.3).astype(np.int32)
+        mask[0, 0] = 1
+        keep = torch.from_numpy(mask).to(device, dtype).repeat_interleave(
+            bk, 0).repeat_interleave(bn, 1)
+        wm = w * keep
+        ki, ji = block_indices(mask)
+        blocks = block_list(ki, ji, mask.shape, device)
+        m_dev = torch.from_numpy(mask).to(device)
+        kw = dict(bm=bm, bk=bk, bn=bn)
+        p = block_plan(M, K, N, bm, bk, bn, dtype)
+        for name, wrapper, kern, plain in (
+                ("skip_mm", skip_mm, lambda: skip_mm(a, wm, blocks, **kw),
+                 lambda: skip_mm_plain(a, wm, ki, ji, **kw)),
+                ("gated_mm", gated_mm, lambda: gated_mm(a, w, m_dev, **kw),
+                 lambda: gated_mm_plain(a, w, m_dev, **kw))):
+            got, again = _counted(wrapper, 2, lambda: (kern(), kern()),
+                                  device)
+            rows[name].append(_shape_row(
+                name, (M, K, N), dtype, got, again, plain(), torch.float32,
+                bm_bk_bn=[bm, bk, bn], path=p.path, tile=list(p.tile),
+                split=p.split))
+    for M, K, N, n, m, dtype, packed, tiles in nm:
+        gen = torch.Generator(device=device).manual_seed(M + N + m)
+        a = torch.randn((M, K), generator=gen, device=device).to(dtype)
+        w = nm_prune_dense(torch.randn((K, N), generator=gen,
+                                       device=device), n, m)
+        vals, idx = pack_nm(w, n, m)
+        vals = vals.to(dtype)
+        offs = pack_offsets(idx, m) if packed else idx
+        bm, bk, bn = tiles or (M, K, N)
+        kw = dict(n=n, m=m, bm=bm, bk=bk, bn=bn, packed=packed)
+        got, again = _counted(nm_spmm, 2, lambda: (
+            nm_spmm(a, vals, offs, **kw), nm_spmm(a, vals, offs, **kw)),
+            device)
+        p = nm_plan(M, K, N, n, m, dtype)
+        rows["nm_spmm"].append(_shape_row(
+            "nm_spmm", (M, K, N), dtype, got, again,
+            nm_spmm_plain(a, vals, offs, **kw), torch.float32,
+            nm=f"{n}:{m}", packed=packed, bm_bk_bn=[bm, bk, bn],
+            path=p.path, split=p.split))
+    for B, S, H, KV, D, dtype, causal, (bq, bk) in flash:
+        gen = torch.Generator(device=device).manual_seed(D + S + H)
+        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=device
+                               ).to(dtype) for h in (H, KV, KV))
+        kw = dict(bq=bq, bk=bk, causal=causal)
+        got, again = _counted(flash_attention, 2, lambda: (
+            flash_attention(q, k, v, **kw), flash_attention(q, k, v, **kw)),
+            device)
+        info = kernel_info(dtype, D, causal) if device != "cpu" else {}
+        rows["flash_attention"].append(_shape_row(
+            "flash_attention", (B, S, H, KV, D), dtype, got, again,
+            flash_attention_plain(q, k, v, **kw), dtype, FLASH_BF16_TOL,
+            causal=causal, width=info.get("width"),
+            local_bytes=info.get("local_bytes")))
+        if info.get("local_bytes"):
+            raise AssertionError(f"K4 at D {D} has local memory: {info}")
+    print(f"[shapes] {sum(map(len, rows.values()))} shape classes held to "
+          f"the plain versions")
+    timed_rows = phase_kernels(device, [(c, M, K, N, torch.float32)
+                                        for c, M, K, N in decode], timed)
+    for name in ("skip_mm", "gated_mm"):
+        rows[name] += timed_rows[name]
+    rows["nm_spmm"] += phase_nm_kernels(device, [(c, M, K, N, torch.bfloat16)
+                                                 for c, M, K, N in decode],
+                                        timed)
+    rows["flash_attention"] += phase_flash_kernels(device, heads, timed)
+    return rows
+
+
 def k4_variants(log: str) -> list:
     """Every K4 kernel the library holds, by type, head dim and masking:
     registers and local memory per thread, dynamic shared memory, and
     resident blocks per SM from the CUDA runtime, spill bytes (stores
     plus loads) from the compiler's report ``log`` (None where the
-    library was cached and there is no report)."""
+    library was cached and there is no report); raises if any has local
+    memory or spills."""
     import re
-    from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
+    from repro_torch.kernels.flash_attention.ops import (F32_WIDTHS, WIDTHS,
                                                          kernel_info)
     spills, name = {}, None
     for line in log.splitlines():
@@ -803,7 +1009,7 @@ def k4_variants(log: str) -> list:
             name = None
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for D in HEAD_DIMS:
+        for D in F32_WIDTHS if dtype == torch.float32 else WIDTHS:
             kind = "fma" if dtype == torch.float32 else "wg"
             for causal in (True, False):
                 rows.append({"dtype": str(dtype).replace("torch.", ""),
@@ -811,6 +1017,10 @@ def k4_variants(log: str) -> list:
                              **kernel_info(dtype, D, causal),
                              "spill_bytes": spills.get((kind, D, causal))})
                 print(f"[build] flash_attention variant {rows[-1]}")
+    bad = [r for r in rows if r["local_bytes"] or r["spill_bytes"]]
+    if bad:
+        raise AssertionError(f"K4 variants with local memory or spills: "
+                             f"{bad}")
     return rows
 
 
@@ -825,10 +1035,12 @@ def block_mm_variants(log: str) -> list:
     spills, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?(narrow|wide)_kernelI"
-                      r"(f|13__nv_bfloat16)?Li(\d+)ELb([01])E", line)
+                      r"(f|13__nv_bfloat16)?Li(\d+)ELb([01])E(?:Lb([01])E)?",
+                      line)
         if m:
             name = ("narrow" if m.group(1) == "narrow" else "wide128",
-                    m.group(2) != "f", int(m.group(3)), m.group(4) == "1")
+                    m.group(2) != "f", int(m.group(3)), m.group(4) == "1",
+                    m.group(5) == "1")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -836,19 +1048,26 @@ def block_mm_variants(log: str) -> list:
             spills[name] = int(m.group(1)) + int(m.group(2))
             name = None
     rows = []
-    for kernel, dtypes in (("narrow", (torch.float32, torch.bfloat16)),
-                           ("wide128", (torch.bfloat16,))):
+    # the narrow path's tiles of 16 columns and its variant for blocks
+    # shorter than a stage (frag) since the kernels widened
+    for kernel, dtypes, tns, frags in (
+            ("narrow", (torch.float32, torch.bfloat16), (16, 32, 64),
+             (False, True)),
+            ("wide128", (torch.bfloat16,), (32, 64), (False,))):
         for dtype in dtypes:
-            for tn in (32, 64):
+            for tn in tns:
                 for gate in (False, True):
-                    rows.append({
-                        "kernel": kernel,
-                        "dtype": str(dtype).replace("torch.", ""),
-                        "tile_cols": tn, "op": "gate" if gate else "skip",
-                        **kernel_info(kernel, tn, dtype, gate),
-                        "spill_bytes": spills.get(
-                            (kernel, dtype == torch.bfloat16, tn, gate))})
-                    print(f"[build] block_mm variant {rows[-1]}")
+                    for frag in frags:
+                        rows.append({
+                            "kernel": kernel,
+                            "dtype": str(dtype).replace("torch.", ""),
+                            "tile_cols": tn, "op": "gate" if gate else "skip",
+                            "frag": frag,
+                            **kernel_info(kernel, tn, dtype, gate, frag),
+                            "spill_bytes": spills.get(
+                                (kernel, dtype == torch.bfloat16, tn, gate,
+                                 frag))})
+                        print(f"[build] block_mm variant {rows[-1]}")
     bad = [r for r in rows if r["local_bytes"] or r["spill_bytes"]]
     if bad:
         raise AssertionError(f"K1/K2 variants with local memory or "
@@ -861,9 +1080,10 @@ def nm_variants(log: str) -> list:
     offsets layout: m-groups per stage, registers and local memory per
     thread, dynamic shared memory, resident blocks per SM from the CUDA
     runtime, spill bytes (stores plus loads) from the compiler's report
-    ``log`` (None where the library was cached and there is no report)."""
+    ``log`` (None where the library was cached and there is no report);
+    raises if any has local memory or spills."""
     import re
-    from repro_torch.kernels.nm_spmm.ops import NM_PAIRS, kernel_info
+    from repro_torch.kernels.nm_spmm.ops import kernel_info
     spills, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?(narrow|wide)_kernelILi"
@@ -872,6 +1092,12 @@ def nm_variants(log: str) -> list:
         if m:
             name = (m.group(1) + (m.group(5) or ""), m.group(4) != "f",
                     int(m.group(2)), int(m.group(3)), m.group(6) == "1")
+            continue
+        # the general path: one kernel per type and layout, any (n, m)
+        m = re.search(r"Function properties for \S*?general_kernelI"
+                      r"(f|13__nv_bfloat16)Lb([01])E", line)
+        if m:
+            name = ("general", m.group(1) != "f", m.group(2) == "1")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -893,6 +1119,22 @@ def nm_variants(log: str) -> list:
                         "spill_bytes": spills.get(
                             (kernel, dtype == torch.bfloat16, n, m, packed))})
                     print(f"[build] nm_spmm variant {rows[-1]}")
+    # the general path, shown at 3:4 and 7:16 (its shared memory follows m)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, m in ((3, 4), (7, 16)):
+            for packed in (False, True):
+                rows.append({
+                    "kernel": "general",
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "nm": f"{n}:{m}", "packed": packed,
+                    **kernel_info("general", dtype, n, m, packed),
+                    "spill_bytes": spills.get(
+                        ("general", dtype == torch.bfloat16, packed))})
+                print(f"[build] nm_spmm variant {rows[-1]}")
+    bad = [r for r in rows if r["local_bytes"] or r["spill_bytes"]]
+    if bad:
+        raise AssertionError(f"K3 variants with local memory or spills: "
+                             f"{bad}")
     return rows
 
 
@@ -2319,9 +2561,9 @@ def _k4_applications(cfg, S: int) -> int:
     no window, no MLA, a head dim K4 takes and S % 128 == 0 (the
     hybrid's shared block once per super-block; whisper's decoder, not
     its non-causal encoder)."""
-    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM
     if (cfg.mla or cfg.family == "ssm" or cfg.attn_window or S % 128
-            or cfg.head_dim not in HEAD_DIMS):
+            or cfg.head_dim > MAX_HEAD_DIM):
         return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.hybrid.period
@@ -2919,6 +3161,8 @@ def main() -> int:
     kernel_rows = phase_kernels()
     kernel_rows["nm_spmm"] = phase_nm_kernels()
     kernel_rows["flash_attention"] = phase_flash_kernels()
+    for name, rows in phase_shapes().items():
+        kernel_rows[name] += rows
 
     # ---- the main path: each phase's counters from 0, read right after
     counters = {"skip_mm": ops.skip_mm, "gated_mm": ops.gated_mm,

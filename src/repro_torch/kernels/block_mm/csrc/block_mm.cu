@@ -42,17 +42,25 @@
 // (kernels/block_mm/ops.py plan(), passed in as the kernel, the tile
 // columns, the K split and the slice cap; the C side checks them):
 //
-// 1. narrow (f32 at any M, bf16 at M <= 32; CUDA cores, f32 FMAs, no
-//    TF32).  A thread block of 128 threads owns 8 output rows by TN
-//    columns (64, or 32 when bn is 32).  A 4-stage cp.async ring brings
-//    32 k rows a stage: A's 8 x 32 and W's 32 x TN, 16 bytes a copy.  Each
+// 1. narrow (f32 at any M; bf16 at M <= 32, or with bk not a multiple of
+//    32 or bn not of 32; CUDA cores, f32 FMAs, no TF32).  A thread block
+//    of 128 threads owns 8 output rows by TN columns (64, 32 or 16: the
+//    widest that divides bn); rows past M (a decode at batch 1 to 7) read
+//    A as zeros and are not written.  A 4-stage cp.async ring brings 32 k
+//    rows a stage: A's 8 x 32 and W's 32 x TN, 16 bytes a copy.  Each
 //    thread owns 4 columns and all 8 rows of a lane of consecutive k rows
 //    (4 at TN = 64 in f32): per k row 32 FMAs on one 16-byte W read and A
 //    read 16 bytes at a time per row.  The lanes are summed by warp
 //    shuffles, then over the 4 warps in order through shared memory.
-// 2. wide (bf16 at M > 32; tensor cores).  A block has a warp per 32 x 32
-//    of its 128 x TN output tile (rows past M are zero-filled on the copy
-//    and not written, so one tile height serves every M); the same
+//    Blocks of 8 to 24 k rows, or any bk that 32 does not divide (FRAG),
+//    are laid end to end: a stage holds the next 32 rows of its slice,
+//    parts of one block or several, each 16-byte copy inside one block
+//    (bk % 8 == 0), and the slice's last stage is zero-filled past its
+//    end.
+// 2. wide (bf16 at M > 32, bk % 32 == 0, bn % 32 == 0; tensor cores).  A
+//    block has a warp per 32 x 32 of its 128 x TN output tile (rows past
+//    M are zero-filled on the copy and not written, so one tile height
+//    serves every M); the same
 //    4-stage ring of 32-row stages, rows padded by 16 bytes so that
 //    ldmatrix rows fall on distinct banks; mma.sync m16n8k16 with A by
 //    ldmatrix and the row-major W (MN-major for B) by ldmatrix.trans, f32
@@ -190,6 +198,18 @@ struct Slice {
   __device__ __forceinline__ bool on(const int* ks, int st) const {
     return !GATE || ks[st / sub] != 0;
   }
+
+  // Blocks shorter than a stage (bk % KC != 0): the slice's blocks laid
+  // end to end as n * bk virtual rows, a stage KC of them.  The k row of
+  // virtual row v < n * bk:
+  __device__ __forceinline__ int krow(const int* ks, int bk, int v) const {
+    const int e = v / bk;
+    return (GATE ? lo + e : ks[e]) * bk + (v - e * bk);
+  }
+  // GATE: whether virtual row v's products count (v past the slice: no)
+  __device__ __forceinline__ bool on_row(const int* ks, int bk, int v) const {
+    return !GATE || (v < n * bk && ks[v / bk] != 0);
+  }
 };
 
 // The ring: `steps` stages of copies issued NSTAGES - 1 ahead of the
@@ -233,7 +253,8 @@ struct Narrow {
   static constexpr int A_CH = A_BYTES / 16;     // 16-byte copies a stage
   static constexpr int W_CH = W_BYTES / 16;
   static_assert(KC % Q == 0 && (R == 1 || R == 2 || R == 4), "k lanes");
-  static_assert(A_CH <= NT && W_CH % NT == 0, "copies spread evenly");
+  static_assert(A_CH <= NT && (W_CH % NT == 0 || W_CH < NT),
+                "copies spread evenly");
   static_assert(4 * NR * TN * 4 <= SMEM, "warp partials reuse the ring");
 };
 
@@ -271,12 +292,16 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
   }
 }
 
-// grid (split * N / TN, M / 8), clusters of (split, 1, 1)
-template <typename T, int TN, bool GATE>
+// grid (split * N / TN, ceil(M / 8)), clusters of (split, 1, 1); rows
+// past M read A as zeros and are not written.  FRAG: blocks shorter than
+// a stage (bk % KC != 0, bk a multiple of 8), a stage holding the next KC
+// of the slice's rows laid end to end (Slice::krow); a lane's R rows lie
+// in one block, so GATE's predicate is per lane there.
+template <typename T, int TN, bool GATE, bool FRAG>
 __global__ void __launch_bounds__(NT)
 narrow_kernel(const T* __restrict__ a, const T* __restrict__ w,
               const int* __restrict__ idx, const int* __restrict__ colptr,
-              float* __restrict__ out, int K, int N, int bk, int bn,
+              float* __restrict__ out, int M, int K, int N, int bk, int bn,
               int split, int cap) {
   using P = Narrow<T, TN>;
   constexpr int VE = 16 / (int)sizeof(T);  // elements per 16-byte copy
@@ -294,16 +319,30 @@ narrow_kernel(const T* __restrict__ a, const T* __restrict__ w,
     unsigned char* base = smem + (st % NSTAGES) * P::STAGE;
     T* As = reinterpret_cast<T*>(base);
     T* Ws = reinterpret_cast<T*>(base + P::A_BYTES);
-    const int k0 = sl.k0(ks, bk, st);
+    // FRAG: virtual rows v0 .. v0 + KC, zeros past the slice's end
+    const int k0 = FRAG ? 0 : sl.k0(ks, bk, st);
+    const int v0 = st * KC, vend = FRAG ? sl.n * bk : 0;
     if (tid < P::A_CH) {
       const int r = tid / (KC / VE), c = (tid % (KC / VE)) * VE;
-      cp_async16(As + r * KC + c, a + (size_t)(row0 + r) * K + k0 + c);
+      const bool ok = row0 + r < M && (!FRAG || v0 + c < vend);
+      const int k = FRAG ? (ok ? sl.krow(ks, bk, v0 + c) : 0) : k0 + c;
+      cp_async16(As + r * KC + c, ok ? a + (size_t)(row0 + r) * K + k : a, ok);
     }
 #pragma unroll
-    for (int q = 0; q < P::W_CH / NT; ++q) {
+    for (int q = 0; q < (P::W_CH + NT - 1) / NT; ++q) {
       const int e = tid + q * NT;
-      const int r = e / (TN / VE), c = (e % (TN / VE)) * VE;
-      cp_async16(Ws + r * TN + c, w + (size_t)(k0 + r) * N + col0 + c);
+      if (P::W_CH % NT == 0 || e < P::W_CH) {
+        const int r = e / (TN / VE), c = (e % (TN / VE)) * VE;
+        if constexpr (FRAG) {
+          const bool ok = v0 + r < vend;
+          cp_async16(Ws + r * TN + c,
+                     ok ? w + (size_t)sl.krow(ks, bk, v0 + r) * N + col0 + c
+                        : w,
+                     ok);
+        } else {
+          cp_async16(Ws + r * TN + c, w + (size_t)(k0 + r) * N + col0 + c);
+        }
+      }
     }
   };
 
@@ -316,7 +355,9 @@ narrow_kernel(const T* __restrict__ a, const T* __restrict__ w,
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 
   auto compute = [&](int st) {
-    if (!sl.on(ks, st)) return;  // GATE: the copies were made all the same
+    // GATE: the copies were made all the same
+    if (FRAG ? !sl.on_row(ks, bk, st * KC + q * P::R) : !sl.on(ks, st))
+      return;
     const unsigned char* base = smem + (st % NSTAGES) * P::STAGE;
     const T* As = reinterpret_cast<const T*>(base);
     const T* Ws = reinterpret_cast<const T*>(base + P::A_BYTES);
@@ -335,7 +376,7 @@ narrow_kernel(const T* __restrict__ a, const T* __restrict__ w,
   };
 
   run_ring(
-      sl.n * sl.sub, load,
+      FRAG ? (sl.n * bk + KC - 1) / KC : sl.n * sl.sub, load,
       [&] {
         if constexpr (GATE) sl.stage(idx, ks, cap, NT);
       },
@@ -367,16 +408,17 @@ narrow_kernel(const T* __restrict__ a, const T* __restrict__ w,
       const float4 p = red4[v * TILE4 + e];
       s.x += p.x, s.y += p.y, s.z += p.z, s.w += p.w;
     }
-    if (split == 1)
+    if (split > 1)
+      red4[e] = s;  // the block's partial tile, [NR][TN]
+    else if (row0 + e / (TN / 4) < M)
       *reinterpret_cast<float4*>(out + (size_t)(row0 + e / (TN / 4)) * N +
                                  col0 + (e % (TN / 4)) * 4) = s;
-    else
-      red4[e] = s;  // the block's partial tile, [NR][TN]
   }
   if (split == 1) return;
   cluster_reduce(red, NR * TN, NT, [&](int e4, float4 sum) {
-    *reinterpret_cast<float4*>(out + (size_t)(row0 + e4 / (TN / 4)) * N +
-                               col0 + (e4 % (TN / 4)) * 4) = sum;
+    if (row0 + e4 / (TN / 4) < M)
+      *reinterpret_cast<float4*>(out + (size_t)(row0 + e4 / (TN / 4)) * N +
+                                 col0 + (e4 % (TN / 4)) * 4) = sum;
   });
 }
 
@@ -589,14 +631,20 @@ cudaError_t launch(const Args& x, dim3 grid, int threads, size_t smem,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <typename T, int TN, bool GATE>
+template <typename T, int TN, bool GATE, bool FRAG>
 cudaError_t launch_narrow(const Args& x) {
   using P = Narrow<T, TN>;
-  const dim3 grid(x.split * (x.N / TN), x.M / NR);
-  return launch<narrow_kernel<T, TN, GATE>>(
+  const dim3 grid(x.split * (x.N / TN), (x.M + NR - 1) / NR);
+  return launch<narrow_kernel<T, TN, GATE, FRAG>>(
       x, grid, NT, P::SMEM + 4 * (size_t)x.cap, static_cast<const T*>(x.a),
-      static_cast<const T*>(x.w), x.idx, x.colptr, x.out, x.K, x.N, x.bk,
-      x.bn, x.split, x.cap);
+      static_cast<const T*>(x.w), x.idx, x.colptr, x.out, x.M, x.K, x.N,
+      x.bk, x.bn, x.split, x.cap);
+}
+
+template <typename T, int TN, bool GATE>
+cudaError_t launch_narrow_bk(const Args& x) {
+  return x.bk % KC ? launch_narrow<T, TN, GATE, true>(x)
+                   : launch_narrow<T, TN, GATE, false>(x);
 }
 
 template <int TN, bool GATE>
@@ -610,31 +658,34 @@ cudaError_t launch_wide(const Args& x) {
       x.K, x.N, x.bk, x.bn, x.split, x.cap);
 }
 
-// kernel 0 = narrow (f32 or bf16), 1 = wide (bf16); tile columns tn = 32
-// or 64
+// kernel 0 = narrow (f32 or bf16), 1 = wide (bf16, tn 32 or 64); tile
+// columns tn = 16, 32 or 64
 template <bool GATE, int TN>
 cudaError_t launch_tn(const Args& x, int kernel, int bf16) {
-  if (kernel == 1) return launch_wide<TN, GATE>(x);
-  return bf16 ? launch_narrow<__nv_bfloat16, TN, GATE>(x)
-              : launch_narrow<float, TN, GATE>(x);
+  if constexpr (TN >= 32)
+    if (kernel == 1) return launch_wide<TN, GATE>(x);
+  return bf16 ? launch_narrow_bk<__nv_bfloat16, TN, GATE>(x)
+              : launch_narrow_bk<float, TN, GATE>(x);
 }
 
 template <bool GATE>
 cudaError_t launch_block_mm(const Args& x, int bf16, int kernel, int tn) {
   const long long nbk = x.K / (x.bk > 0 ? x.bk : 1);
-  if (x.M <= 0 || x.M % NR || x.bk <= 0 || x.bk % KC || x.K <= 0 ||
-      x.K % x.bk || (x.bn != 32 && x.bn != 64 && x.bn != 128) || x.N <= 0 ||
-      x.N % x.bn || (tn != 32 && tn != 64) || x.bn % tn || x.split < 1 ||
+  if (x.M <= 0 || x.bk <= 0 || x.bk % 8 || x.K <= 0 || x.K % x.bk ||
+      x.bn <= 0 || x.bn % 16 || x.N <= 0 || x.N % x.bn ||
+      (tn != 16 && tn != 32 && tn != 64) || x.bn % tn || x.split < 1 ||
       x.split > MAX_SPLIT || x.cap < 1 || kernel < 0 || kernel > 1 ||
-      (kernel && !bf16) ||  // f32 never on TF32
+      (kernel && (!bf16 ||  // f32 never on TF32
+                  x.bk % KC || tn < 32)) ||
       (long long)x.split * (x.N / tn) > 0x7fffffffLL ||
       (x.M + NR - 1) / NR > 65535 || 4LL * x.cap > 128 * 1024 ||
       (GATE && (long long)x.split * x.cap < nbk))
     return cudaErrorInvalidValue;
   for (const void* p : {x.a, x.w, static_cast<const void*>(x.out)})
     if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
-  return tn == 64 ? launch_tn<GATE, 64>(x, kernel, bf16)
-                  : launch_tn<GATE, 32>(x, kernel, bf16);
+  return tn == 64   ? launch_tn<GATE, 64>(x, kernel, bf16)
+         : tn == 32 ? launch_tn<GATE, 32>(x, kernel, bf16)
+                    : launch_tn<GATE, 16>(x, kernel, bf16);
 }
 
 template <auto Kernel>
@@ -656,46 +707,58 @@ cudaError_t kernel_info(size_t smem, int threads, int* info) {
   return cudaSuccess;
 }
 
-template <bool GATE, int TN>
+template <bool GATE, int TN, bool FRAG>
 cudaError_t info_tn(int kernel, int bf16, int* info) {
-  if (kernel == 1)
-    return kernel_info<wide_kernel<TN, GATE>>(Wide<TN>::SMEM,
-                                              Wide<TN>::THREADS, info);
+  if constexpr (TN >= 32 && !FRAG)
+    if (kernel == 1)
+      return kernel_info<wide_kernel<TN, GATE>>(Wide<TN>::SMEM,
+                                                Wide<TN>::THREADS, info);
   if (bf16)
-    return kernel_info<narrow_kernel<__nv_bfloat16, TN, GATE>>(
+    return kernel_info<narrow_kernel<__nv_bfloat16, TN, GATE, FRAG>>(
         Narrow<__nv_bfloat16, TN>::SMEM, NT, info);
-  return kernel_info<narrow_kernel<float, TN, GATE>>(Narrow<float, TN>::SMEM,
-                                                     NT, info);
+  return kernel_info<narrow_kernel<float, TN, GATE, FRAG>>(
+      Narrow<float, TN>::SMEM, NT, info);
+}
+
+template <bool GATE, bool FRAG>
+cudaError_t info_frag(int kernel, int tn, int bf16, int* info) {
+  return tn == 64   ? info_tn<GATE, 64, FRAG>(kernel, bf16, info)
+         : tn == 32 ? info_tn<GATE, 32, FRAG>(kernel, bf16, info)
+                    : info_tn<GATE, 16, FRAG>(kernel, bf16, info);
 }
 
 }  // namespace
 
-// What serves (kernel, tn, bf16, gate), in info[0..5]: k rows per ring
-// stage, registers per thread, local memory per thread in bytes (spills
-// and stack), dynamic shared memory per block in bytes (the ring; a launch
-// adds 4 bytes per slice entry), resident blocks per SM at that shared
-// memory, threads per block.  kernel 0 = narrow (CUDA cores), 1 = wide
-// (bf16 tensor cores, 128-row tiles); tn = 32 or 64 tile columns.
-// Returns cudaErrorInvalidValue for a variant the library does not hold.
+// What serves (kernel, tn, bf16, gate, frag), in info[0..5]: k rows per
+// ring stage, registers per thread, local memory per thread in bytes
+// (spills and stack), dynamic shared memory per block in bytes (the ring;
+// a launch adds 4 bytes per slice entry), resident blocks per SM at that
+// shared memory, threads per block.  kernel 0 = narrow (CUDA cores), 1 =
+// wide (bf16 tensor cores, 128-row tiles, tn 32 or 64, not frag); tn =
+// 16, 32 or 64 tile columns; frag: blocks shorter than a stage (bk % 32
+// != 0).  Returns cudaErrorInvalidValue for a variant the library does
+// not hold.
 extern "C" int block_mm_info(int kernel, int tn, int bf16, int gate,
-                             int* info) {
-  if (kernel < 0 || kernel > 1 || (kernel && !bf16) || (tn != 32 && tn != 64))
+                             int frag, int* info) {
+  if (kernel < 0 || kernel > 1 || (kernel && (!bf16 || tn < 32 || frag)) ||
+      (tn != 16 && tn != 32 && tn != 64))
     return cudaErrorInvalidValue;
   if (gate)
-    return tn == 64 ? info_tn<true, 64>(kernel, bf16, info)
-                    : info_tn<true, 32>(kernel, bf16, info);
-  return tn == 64 ? info_tn<false, 64>(kernel, bf16, info)
-                  : info_tn<false, 32>(kernel, bf16, info);
+    return frag ? info_frag<true, true>(kernel, tn, bf16, info)
+                : info_frag<true, false>(kernel, tn, bf16, info);
+  return frag ? info_frag<false, true>(kernel, tn, bf16, info)
+              : info_frag<false, false>(kernel, tn, bf16, info);
 }
 
 // Plain C interface (ctypes).  Pointers are device pointers; a, w and out
 // 16-byte aligned (else cudaErrorMisalignedAddress); the stream is a
-// cudaStream_t.  The plan: kernel (0 narrow; 1 wide, bf16 only), tn
-// tile columns (32 or 64, dividing bn), split K-slices (1..16) and cap, the
-// most k blocks any slice holds.  Shapes: M % 8 == 0, bk a multiple of 32
-// dividing K, bn in {32, 64, 128} dividing N.  Anything else returns
-// cudaErrorInvalidValue; otherwise the launch's cudaError_t (0 on
-// success).
+// cudaStream_t.  The plan: kernel (0 narrow; 1 wide, bf16 only, bk a
+// multiple of 32 and tn 32 or 64), tn tile columns (16, 32 or 64,
+// dividing bn), split K-slices (1..16) and cap, the most k blocks any
+// slice holds.  Shapes: any M >= 1, bk a multiple of 8 dividing K, bn a
+// multiple of 16 dividing N (so every row of A and W starts 16-byte
+// aligned).  Anything else returns cudaErrorInvalidValue; otherwise the
+// launch's cudaError_t (0 on success).
 //
 // K1 SKIP: kidx (nnzb,) int32 sorted by column block, colptr (N/bn + 1,)
 // int32 with column block j's run at colptr[j] .. colptr[j+1].  A slice

@@ -17,16 +17,18 @@ Both wrappers take A (M, K) and W (K, N) as f32 or bf16 (the same type,
 contiguous, on one device) and return (M, N) f32.  Block sizes follow
 the JAX package's wrappers (``bm = min(bm, M)``, likewise ``bk``,
 ``bn``), but a shape the tiles do not divide raises instead of silently
-dropping the remainder.  The kernels take ``bm`` in {8, 16, 32, 64,
-128}, ``bk`` a multiple of 32 and ``bn`` in {32, 64, 128}; ``bm`` only
-decides which shapes are legal, and ``bk`` x ``bn`` is the granularity
-of the block list and the mask.
+dropping the remainder.  The kernels take any M and ``bm`` that divides
+it, ``bk`` a multiple of :data:`BK_ALIGN` and ``bn`` a multiple of
+:data:`BN_ALIGN` (so every row of A and W starts 16-byte aligned);
+``bm`` only decides which shapes are legal, and ``bk`` x ``bn`` is the
+granularity of the block list and the mask.
 
 Which kernel runs, its tiles and its K split come from :func:`plan`, a
 pure function of the shape, the type, the SM count and, for K1, the
 longest column run of the block list (``BlockList.max_run``, found once
-by :func:`block_list`): the narrow path (f32 at any M, bf16 at M <= 32)
-on the CUDA cores, 8 rows a block; the wide path (bf16 at M > 32) on the
+by :func:`block_list`): the narrow path (f32 at any M, bf16 at M <= 32
+or with blocks that are not multiples of 32 in both directions) on the
+CUDA cores, 8 rows a block; the wide path (the rest of bf16) on the
 tensor cores, 128 rows a block.  Both cut each column's k blocks into
 slices reduced in a fixed order inside one thread-block cluster, so that
 repeated calls give the same bits.
@@ -52,13 +54,14 @@ LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "block_mm.cu",
     {"block_mm_skip": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
      "block_mm_gated": [_P, _P, _P, _P] + [_I] * 10 + [_P],
-     "block_mm_info": [_I] * 4 + [_P]})
-_KERNEL_BM = (8, 16, 32, 64, 128)
-_KERNEL_BN = (32, 64, 128)
+     "block_mm_info": [_I] * 5 + [_P]})
+#: the kernels take bk a multiple of BK_ALIGN and bn one of BN_ALIGN
+BK_ALIGN, BN_ALIGN = 8, 16
 #: the kernels of ``csrc/block_mm.cu``, by the number the C interface
 #: takes: the narrow path, and the wide one with 128-row tiles
 KERNELS = {"narrow": 0, "wide128": 1}
-#: k rows per ring stage: every legal bk is a multiple
+#: k rows per ring stage; a bk it does not divide lays the slice's
+#: blocks end to end in the stages (the narrow path's ``FRAG`` variant)
 STAGE_ROWS = 32
 #: output rows per block of the narrow and the wide path; bf16 above
 #: NARROW_MAX_M rows goes wide
@@ -81,10 +84,12 @@ def plan(M: int, K: int, N: int, bm: int, bk: int, bn: int, dtype,
     (bm, bk, bn); raises where the kernels cannot go (``bm``, ``bk``,
     ``bn`` as the wrappers clamp them).
 
-    bf16 with M above 32 takes the wide path (tensor cores, tiles of 128
-    rows; rows past M are read as zeros and not written); everything
-    else, f32 always, the narrow one (CUDA cores, 8 rows).  Tiles are 64
-    columns, 32 when bn is 32: a tile never spans two column blocks.
+    bf16 with M above 32, bk a multiple of 32 and bn of 32 takes the
+    wide path (tensor cores, tiles of 128 rows); everything else, f32
+    always, the narrow one (CUDA cores, 8 rows).  On both, rows past M
+    are read as zeros and not written.  Tiles are 64 columns, else 32,
+    else 16, the widest that divides bn: a tile never spans two column
+    blocks.
     ``run`` is the longest column run of K1's block list
     (``BlockList.max_run``; a list may repeat a block); K2 walks all K/bk
     blocks of every column.  K is cut into the power of two of slices
@@ -94,19 +99,19 @@ def plan(M: int, K: int, N: int, bm: int, bk: int, bn: int, dtype,
     K2 under every split at the chip cells, and its pick is not always
     the fastest there (PERF.md).  Memoized: a launch repeats no host
     work."""
-    if (bm not in _KERNEL_BM or bk <= 0 or bk % STAGE_ROWS
-            or bn not in _KERNEL_BN or M <= 0 or K <= 0 or N <= 0
+    if (min(M, K, N, bm, bk, bn) <= 0 or bk % BK_ALIGN or bn % BN_ALIGN
             or M % bm or K % bk or N % bn):
-        raise ValueError(f"the kernel takes bm in {_KERNEL_BM}, bk a "
-                         f"multiple of {STAGE_ROWS} and bn in {_KERNEL_BN} "
-                         f"dividing (M, K, N); got ({bm}, {bk}, {bn}) for "
-                         f"({M}, {K}, {N})")
+        raise ValueError(f"the kernel takes bm dividing M, bk a multiple "
+                         f"of {BK_ALIGN} dividing K and bn a multiple of "
+                         f"{BN_ALIGN} dividing N; got ({bm}, {bk}, {bn}) "
+                         f"for ({M}, {K}, {N})")
     run = K // bk if run is None else run
     if run < 1:
         raise ValueError(f"a column run of {run} k blocks")
-    wide = dtype == torch.bfloat16 and M > NARROW_MAX_M
+    wide = (dtype == torch.bfloat16 and M > NARROW_MAX_M
+            and bk % STAGE_ROWS == 0 and bn % 32 == 0)
     path, rows = ("wide", WIDE_ROWS) if wide else ("narrow", NARROW_ROWS)
-    tile = (rows, 64 if bn % 64 == 0 else 32)
+    tile = (rows, next(c for c in (64, 32, 16) if bn % c == 0))
     split = min(split_aim(math.ceil(M / rows) * (N // tile[1]), sms), run)
     split = 1 << (split.bit_length() - 1)
     return Plan(path=path, split=split, tile=tile,
@@ -114,16 +119,18 @@ def plan(M: int, K: int, N: int, bm: int, bk: int, bn: int, dtype,
                 slice_blocks=math.ceil(run / split))
 
 
-def kernel_info(kernel: str, tn: int, dtype, gate: bool) -> dict:
-    """What the library holds for one variant: k rows per ring stage,
-    registers and local memory (spills, stack) per thread, dynamic shared
-    memory per block (the ring), resident blocks per SM and threads per
-    block, from the CUDA runtime (builds the library); raises where it
-    has none."""
+def kernel_info(kernel: str, tn: int, dtype, gate: bool,
+                frag: bool = False) -> dict:
+    """What the library holds for one variant (``frag``: the narrow
+    path's variant for a bk that :data:`STAGE_ROWS` does not divide): k
+    rows per ring stage, registers and local memory (spills, stack) per
+    thread, dynamic shared memory per block (the ring), resident blocks
+    per SM and threads per block, from the CUDA runtime (builds the
+    library); raises where it has none."""
     info = (ctypes.c_int * 6)()
     err = LIBRARY.lib().block_mm_info(KERNELS[kernel], tn,
                                       int(dtype == torch.bfloat16),
-                                      int(gate), info)
+                                      int(gate), int(frag), info)
     if err:
         raise RuntimeError(f"block_mm_info failed: CUDA error {err}")
     return {"stage_rows": info[0], "registers": info[1],
@@ -234,10 +241,10 @@ def _check_cuda(a, w, bm, bk, bn) -> None:
                         f"{a.dtype} and {w.dtype}")
     if not (a.is_contiguous() and w.is_contiguous()):
         raise ValueError("a and w must be contiguous")
-    if bm not in _KERNEL_BM or bk % 32 or bn not in _KERNEL_BN:
-        raise ValueError(f"the kernel takes bm in {_KERNEL_BM}, bk a "
-                         f"multiple of 32 and bn in {_KERNEL_BN}; got "
-                         f"({bm}, {bk}, {bn})")
+    if bk % BK_ALIGN or bn % BN_ALIGN:
+        raise ValueError(f"the kernel takes bk a multiple of {BK_ALIGN} "
+                         f"and bn a multiple of {BN_ALIGN}; got ({bm}, "
+                         f"{bk}, {bn})")
 
 
 def _to_device(host: np.ndarray, device) -> torch.Tensor:
@@ -380,7 +387,8 @@ def gated_mm(a, w, block_mask, *, bm=128, bk=128, bn=128):
 
 gated_mm.launches = 0
 
-__all__ = ["BUILD_DIR", "BlockList", "H100_SMS", "KERNELS", "LIBRARY",
-           "MAX_SPLIT", "Plan", "block_indices", "block_list",
-           "block_mm_ref", "column_pointers", "gated_mm", "gated_mm_plain",
-           "kernel_info", "plan", "skip_mm", "skip_mm_plain", "sm_count"]
+__all__ = ["BK_ALIGN", "BN_ALIGN", "BUILD_DIR", "BlockList", "H100_SMS",
+           "KERNELS", "LIBRARY", "MAX_SPLIT", "Plan", "block_indices",
+           "block_list", "block_mm_ref", "column_pointers", "gated_mm",
+           "gated_mm_plain", "kernel_info", "plan", "skip_mm",
+           "skip_mm_plain", "sm_count"]

@@ -43,10 +43,12 @@
 // warp copies a K/V tile into registers; a producer warp keeps K/V tiles
 // of 64 keys arriving by TMA (one thread, boxes of 64 rows, rows past S
 // zero-filled) into a ring of 2 stages with a "full" and an "empty"
-// mbarrier each, so loads never wait for compute.  A stored row is the
-// head's D bf16 (64 of them, in two halves, at D 128), swizzled by TMA in
-// 32, 64 or 128 bytes as the wgmma descriptors expect.  The TMA maps are
-// built per call on the host and passed as __grid_constant__ parameters.
+// mbarrier each, so loads never wait for compute.  A tile is stored in
+// column pieces of 64, 32 or 16 bf16 (the widest that divides the
+// kernel's width: two of 64 at D 128, five of 16 at D 80), each piece's
+// rows swizzled by TMA in 128, 64 or 32 bytes as the wgmma descriptors
+// expect.  The TMA maps are built per call on the host and passed as
+// __grid_constant__ parameters.
 // The softmax runs on the S accumulator fragments (row max and row sum
 // over the 4 threads of a quad), and P stays in registers: an S
 // fragment, rounded to bf16, is the register A operand of O += P V.
@@ -54,7 +56,8 @@
 // error about 2^-22, far below the bf16 rounding of p that follows).
 // What bounds it: the chain inside one warpgroup, wgmma -> softmax ->
 // wgmma, per 64-key tile.  Resident blocks hide it: the registers are
-// capped so that 4 blocks fit on an SM at D <= 64 (2 at D 128), and one
+// capped so that 4 blocks fit on an SM at D <= 64 (2 at D 80 to 160; at
+// D 192 and 256 the ring's shared memory leaves room for one), and one
 // block's softmax runs while another's wgmma does.  Issuing the next
 // tile's Q K^T before the softmax inside one warpgroup was slower: the
 // compiler moved the softmax behind the wait for both products.
@@ -68,6 +71,17 @@
 // holds a 4 x (BK/16) tile of scores and a 4 x (D/16) tile of the
 // accumulator from f32 tiles in shared memory.
 //
+// Head dims: the reference's K4 takes the whole head as one block, so any
+// D.  Both variants are compiled at the widths 16, 32, 48, 64, 80 (bf16
+// only), 96, 112, 128, 160, 192 and 256 (by_width); heads of D from 1 to
+// 256 run the first width at least as wide, the missing columns read as
+// zeros (the TMA map carries the true D, so its boxes zero-fill past it;
+// the f32 loads are predicated), and only the true D columns are
+// written.  The
+// scale stays 1/sqrt(true D).  The PV product at a width that is not one
+// wgmma's N is a few wgmmas side by side (wgmma_pv); at D 256 the O
+// accumulator alone is 128 registers a thread.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC; bound with ctypes (plain C interface below).
 
@@ -78,6 +92,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -128,7 +144,7 @@ template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(FMA_THREADS)
     fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ out, int S,
-               int H, int rep, Strides qs, Strides ks, Strides vs,
+               int H, int rep, int dh, Strides qs, Strides ks, Strides vs,
                float scale) {
   using Geo = FmaTile<D>;
   constexpr int BK = Geo::BK, NJ = Geo::NJ, NC = Geo::NC, KS = Geo::KS;
@@ -148,7 +164,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
 
   for (int e = tid; e < BQ * D; e += FMA_THREADS) {
     const int r = e / D, d = e % D;
-    Qt[d * QS + r] = q0 + r < S ? qb[(q0 + r) * qs.s + d] : 0.f;
+    Qt[d * QS + r] = q0 + r < S && d < dh ? qb[(q0 + r) * qs.s + d] : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -168,7 +184,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < BK * D; e += FMA_THREADS) {
       const int c = e / D, d = e % D;
-      const bool in = k0 + c < S;
+      const bool in = k0 + c < S && d < dh;
       Kt[d * KS + c] = in ? kb[(k0 + c) * ks.s + d] : 0.f;
       Vs[c * D + d] = in ? vb[(k0 + c) * vs.s + d] : 0.f;
     }
@@ -245,9 +261,10 @@ __global__ void __launch_bounds__(FMA_THREADS)
     const int qp = q0 + ty * 4 + i;
     if (qp >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* o = out + (((size_t)b * S + qp) * H + h) * D;
+    float* o = out + (((size_t)b * S + qp) * H + h) * dh;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[tx + 16 * c] = acc[i][c] / den;
+    for (int c = 0; c < NC; ++c)
+      if (tx + 16 * c < dh) o[tx + 16 * c] = acc[i][c] / den;
   }
 }
 
@@ -266,10 +283,11 @@ constexpr int BK = 64;           // keys per tile
 
 template <int D>
 struct WgTile {
-  static constexpr int ROW = D < 64 ? D : 64;   // bf16 per stored row
+  // bf16 per stored row: the widest of 64, 32 and 16 that divides D
+  static constexpr int ROW = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
   static constexpr int ROW_BYTES = 2 * ROW;     // = the swizzle width
   static constexpr int ATOM = 8 * ROW_BYTES;    // 8 rows: one swizzle atom
-  static constexpr int HALVES = D / ROW;        // column halves of a tile
+  static constexpr int HALVES = D / ROW;        // column pieces of a tile
   // the descriptor's and the TMA map's swizzle: 128, 64 or 32 bytes
   static constexpr unsigned LAYOUT =
       ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
@@ -277,8 +295,9 @@ struct WgTile {
       ROW_BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : ROW_BYTES == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                         : CU_TENSOR_MAP_SWIZZLE_32B;
-  // resident blocks per SM the register allocation must allow
-  static constexpr int MIN_BLOCKS = D <= 64 ? 4 : 2;
+  // resident blocks per SM the register allocation must allow: above
+  // D 160 the ring's shared memory leaves room for one
+  static constexpr int MIN_BLOCKS = D <= 64 ? 4 : D <= 160 ? 2 : 1;
   static constexpr int STAGES = 2;
   static constexpr int HALF_BYTES = 64 * ROW_BYTES;
   static constexpr int TILE_BYTES = HALVES * HALF_BYTES;
@@ -413,7 +432,8 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
 
 // d (64 x 16 f32) += a (64 x 16 bf16, registers) b (16 x 16 bf16,
 // shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+template <int O, int NO>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[NO],
                                              const unsigned (&a)[4],
                                              uint64_t b) {
   asm volatile(
@@ -421,14 +441,15 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // d (64 x 32 f32) += a (64 x 16 bf16, registers) b (16 x 32 bf16,
 // shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+template <int O, int NO>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[NO],
                                              const unsigned (&a)[4],
                                              uint64_t b) {
   asm volatile(
@@ -437,16 +458,17 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // d (64 x 64 f32) += a (64 x 16 bf16, registers) b (16 x 64 bf16,
 // shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+template <int O, int NO>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[NO],
                                              const unsigned (&a)[4],
                                              uint64_t b) {
   asm volatile(
@@ -457,19 +479,21 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]),
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // d (64 x 128 f32) += a (64 x 16 bf16, registers) b (16 x 128 bf16,
 // shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+template <int O, int NO>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[NO],
                                              const unsigned (&a)[4],
                                              uint64_t b) {
   asm volatile(
@@ -484,48 +508,48 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]),
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31]),
+        "+f"(d[O + 32]), "+f"(d[O + 33]), "+f"(d[O + 34]), "+f"(d[O + 35]),
+        "+f"(d[O + 36]), "+f"(d[O + 37]), "+f"(d[O + 38]), "+f"(d[O + 39]),
+        "+f"(d[O + 40]), "+f"(d[O + 41]), "+f"(d[O + 42]), "+f"(d[O + 43]),
+        "+f"(d[O + 44]), "+f"(d[O + 45]), "+f"(d[O + 46]), "+f"(d[O + 47]),
+        "+f"(d[O + 48]), "+f"(d[O + 49]), "+f"(d[O + 50]), "+f"(d[O + 51]),
+        "+f"(d[O + 52]), "+f"(d[O + 53]), "+f"(d[O + 54]), "+f"(d[O + 55]),
+        "+f"(d[O + 56]), "+f"(d[O + 57]), "+f"(d[O + 58]), "+f"(d[O + 59]),
+        "+f"(d[O + 60]), "+f"(d[O + 61]), "+f"(d[O + 62]), "+f"(d[O + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int D>
+// O[:, C0:D) += P V[:, C0:D) for one k16 step whose V rows start at
+// shared address `v`: the widest of n128, n64, n32, n16 that fits, then
+// the rest.  A column C0 starts piece C0 / ROW of the tile (every width's
+// pieces divide its parts), so each part's descriptor is the tile's moved
+// by whole pieces.  D 16, 32, 64 and 128 are one wgmma.
+template <int D, int C0 = 0>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const unsigned (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv<16>(float (&o)[8],
-                                             const unsigned (&a)[4],
-                                             uint64_t b) {
-  wgmma_rs_n16(o, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<32>(float (&o)[16],
-                                             const unsigned (&a)[4],
-                                             uint64_t b) {
-  wgmma_rs_n32(o, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                             const unsigned (&a)[4],
-                                             uint64_t b) {
-  wgmma_rs_n64(o, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const unsigned (&a)[4],
-                                              uint64_t b) {
-  wgmma_rs_n128(o, a, b);
+                                         const unsigned (&a)[4], unsigned v) {
+  using Geo = WgTile<D>;
+  constexpr int LEFT = D - C0;
+  if constexpr (LEFT > 0) {
+    const uint64_t b =
+        gmma_desc(v + (C0 / Geo::ROW) * Geo::HALF_BYTES, Geo::HALF_BYTES,
+                  Geo::ATOM, Geo::LAYOUT);
+    constexpr int N = LEFT >= 128 ? 128 : LEFT >= 64 ? 64 : LEFT >= 32 ? 32
+                                                                        : 16;
+    static_assert(C0 % Geo::ROW == 0, "a part starts a piece");
+    if constexpr (N == 128) wgmma_rs_n128<C0 / 2>(o, a, b);
+    else if constexpr (N == 64) wgmma_rs_n64<C0 / 2>(o, a, b);
+    else if constexpr (N == 32) wgmma_rs_n32<C0 / 2>(o, a, b);
+    else wgmma_rs_n16<C0 / 2>(o, a, b);
+    wgmma_pv<D, C0 + N>(o, a, v);
+  }
 }
 
 // Accumulator layout of m64nNk16 (warp w of the warpgroup, g = lane / 4,
@@ -538,7 +562,7 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<D>::MIN_BLOCKS)
     wg_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, float* __restrict__ out,
-              int S, int H, int rep, float scale) {
+              int S, int H, int rep, int dh, float scale) {
   using Geo = WgTile<D>;
   constexpr int STAGES = Geo::STAGES, HALVES = Geo::HALVES, ROW = Geo::ROW,
                 HALF = Geo::HALF_BYTES, TILE = Geo::TILE_BYTES, NO = Geo::NO,
@@ -627,8 +651,7 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<D>::MIN_BLOCKS)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(o, pa[kk], gmma_desc(v_s(st) + kk * 16 * Geo::ROW_BYTES,
-                                        HALF, ATOM, LAYOUT));
+      wgmma_pv<D>(o, pa[kk], v_s(st) + kk * 16 * Geo::ROW_BYTES);
     wg_commit();
   };
   // scores in f32 times 1/sqrt(D), masked only in the diagonal tile
@@ -704,11 +727,20 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<D>::MIN_BLOCKS)
     const int qp = row0 + r * 8;
     if (qp >= S) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    float* orow = out + (((size_t)b * S + qp) * H + h) * D + 2 * t;
+    float* orow = out + (((size_t)b * S + qp) * H + h) * dh + 2 * t;
+    if (dh == D) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(orow + j * 8) =
-          make_float2(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(orow + j * 8) =
+            make_float2(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+    } else {  // a head narrower than the kernel: its columns only
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (j * 8 + 2 * t + e < dh)
+            orow[j * 8 + e] = o[4 * j + 2 * r + e] / den;
+    }
   }
 }
 
@@ -716,7 +748,7 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<D>::MIN_BLOCKS)
 struct Args {
   const void *q, *k, *v;
   float* out;
-  int B, S, H, KV;
+  int B, S, H, KV, D;  // D: the heads' own width, at most the kernel's
   Strides qs, ks, vs;
   cudaStream_t s;
 };
@@ -749,15 +781,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// TMA map of a (B, S, heads, D) bf16 view read through its strides, in
-// boxes of 64 rows by one stored row, with the tile's swizzle; rows past
-// S read as zeros
+// TMA map of a (B, S, heads, dh) bf16 view read through its strides, in
+// boxes of 64 rows by one stored row of the kernel's width D, with the
+// tile's swizzle; rows past S and columns past dh read as zeros
 template <int D>
 bool tensor_map(CUtensorMap* map, const void* base, int S, int heads, int B,
-                const Strides& st) {
+                int dh, const Strides& st) {
   const EncodeTiled fn = encoder();
   if (!fn) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)S,
                               (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
                                  (cuuint64_t)st.b * 2};
@@ -777,8 +809,8 @@ cudaError_t launch_fma(const Args& x, float scale) {
   const dim3 grid(x.B * x.H, (x.S + BQ - 1) / BQ);
   fma_kernel<D, CAUSAL><<<grid, FMA_THREADS, smem, x.s>>>(
       static_cast<const float*>(x.q), static_cast<const float*>(x.k),
-      static_cast<const float*>(x.v), x.out, x.S, x.H, x.H / x.KV, x.qs,
-      x.ks, x.vs, scale);
+      static_cast<const float*>(x.v), x.out, x.S, x.H, x.H / x.KV, x.D,
+      x.qs, x.ks, x.vs, scale);
   return cudaGetLastError();
 }
 
@@ -790,24 +822,28 @@ cudaError_t launch_wg(const Args& x, float scale) {
   const cudaError_t e = opt_in<wg_kernel<D, CAUSAL>>(smem);
   if (e != cudaSuccess) return e;
   CUtensorMap mq, mk, mv;
-  if (!tensor_map<D>(&mq, x.q, x.S, x.H, x.B, x.qs) ||
-      !tensor_map<D>(&mk, x.k, x.S, x.KV, x.B, x.ks) ||
-      !tensor_map<D>(&mv, x.v, x.S, x.KV, x.B, x.vs))
+  if (!tensor_map<D>(&mq, x.q, x.S, x.H, x.B, x.D, x.qs) ||
+      !tensor_map<D>(&mk, x.k, x.S, x.KV, x.B, x.D, x.ks) ||
+      !tensor_map<D>(&mv, x.v, x.S, x.KV, x.B, x.D, x.vs))
     return cudaErrorInvalidValue;
   const dim3 grid(x.B * x.H, (x.S + BQ - 1) / BQ);
   wg_kernel<D, CAUSAL><<<grid, WG_THREADS, smem, x.s>>>(
-      mq, mk, mv, x.out, x.S, x.H, x.H / x.KV, scale);
+      mq, mk, mv, x.out, x.S, x.H, x.H / x.KV, x.D, scale);
   return cudaGetLastError();
 }
 
+// the kernel of width D for heads of x.D <= D columns; the scale is the
+// heads' own, 1 / sqrt(x.D)
 template <int D>
 cudaError_t launch_d(const Args& x, int causal, int bf16) {
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)x.D));
   if (bf16)
     return causal ? launch_wg<D, true>(x, scale)
                   : launch_wg<D, false>(x, scale);
-  return causal ? launch_fma<D, true>(x, scale)
-                : launch_fma<D, false>(x, scale);
+  if constexpr (D == 80) return cudaErrorInvalidValue;  // by_width: f32 96
+  else
+    return causal ? launch_fma<D, true>(x, scale)
+                  : launch_fma<D, false>(x, scale);
 }
 
 bool aligned16(const void* p, const Strides& s) {
@@ -835,39 +871,62 @@ cudaError_t kernel_info(size_t smem, int threads, int* info) {
 template <int D, bool CAUSAL>
 cudaError_t info_d(int bf16, int* info) {
   info[0] = bf16;
-  return bf16 ? kernel_info<wg_kernel<D, CAUSAL>>(WgTile<D>::SMEM,
-                                                  WG_THREADS, info)
-              : kernel_info<fma_kernel<D, CAUSAL>>(FmaTile<D>::SMEM,
-                                                   FMA_THREADS, info);
+  if (bf16)
+    return kernel_info<wg_kernel<D, CAUSAL>>(WgTile<D>::SMEM, WG_THREADS,
+                                             info);
+  if constexpr (D == 80) return cudaErrorInvalidValue;  // by_width: f32 96
+  else
+    return kernel_info<fma_kernel<D, CAUSAL>>(FmaTile<D>::SMEM, FMA_THREADS,
+                                              info);
 }
 
 template <int D>
 cudaError_t info_causal(int bf16, int causal, int* info) {
+  info[5] = D;
   return causal ? info_d<D, true>(bf16, info) : info_d<D, false>(bf16, info);
+}
+
+// The widths the library holds, and the one a head dim of 1 to 256 runs:
+// the first at least as wide, its missing columns read as zeros.  f32
+// skips 80 (heads of 65 to 96 run 96): there the compiler spilled the
+// causal FMA kernel's registers to keep four blocks on an SM.  Calls f
+// with the width as a compile-time constant; cudaErrorInvalidValue for
+// any other head dim.
+template <typename F>
+cudaError_t by_width(int D, int bf16, F f) {
+  using std::integral_constant;
+  if (D < 1 || D > 256) return cudaErrorInvalidValue;
+  if (D <= 16) return f(integral_constant<int, 16>{});
+  if (D <= 32) return f(integral_constant<int, 32>{});
+  if (D <= 48) return f(integral_constant<int, 48>{});
+  if (D <= 64) return f(integral_constant<int, 64>{});
+  if (D <= 80 && bf16) return f(integral_constant<int, 80>{});
+  if (D <= 96) return f(integral_constant<int, 96>{});
+  if (D <= 112) return f(integral_constant<int, 112>{});
+  if (D <= 128) return f(integral_constant<int, 128>{});
+  if (D <= 160) return f(integral_constant<int, 160>{});
+  if (D <= 192) return f(integral_constant<int, 192>{});
+  return f(integral_constant<int, 256>{});
 }
 
 }  // namespace
 
-// What serves (D, bf16, causal), in info[0..4]: the variant (1 = bf16
+// What serves (D, bf16, causal), in info[0..5]: the variant (1 = bf16
 // wgmma with the TMA ring, wg_kernel; 0 = f32 FMA, fma_kernel),
 // registers per thread, local memory per thread in bytes (spills and
-// stack), dynamic shared memory per block in bytes, and resident blocks
-// per SM.  D outside {16, 32, 64, 128} returns
+// stack), dynamic shared memory per block in bytes, resident blocks per
+// SM, and the kernel's width (by_width).  D outside 1 to 256 returns
 // cudaErrorInvalidValue.
 extern "C" int flash_attention_info(int D, int bf16, int causal, int* info) {
-  switch (D) {
-    case 16: return info_causal<16>(bf16, causal, info);
-    case 32: return info_causal<32>(bf16, causal, info);
-    case 64: return info_causal<64>(bf16, causal, info);
-    case 128: return info_causal<128>(bf16, causal, info);
-    default: return cudaErrorInvalidValue;
-  }
+  return by_width(D, bf16, [&](auto w) {
+    return info_causal<decltype(w)::value>(bf16, causal, info);
+  });
 }
 
 // Plain C interface (ctypes).  Pointers are device pointers, the stream a
 // cudaStream_t, strides in elements with the last dimension contiguous;
-// out is a contiguous (B, S, H, D) f32 tensor.  D in {16, 32, 64, 128} and
-// H a multiple of KV; any other shape returns cudaErrorInvalidValue.  bf16
+// out is a contiguous (B, S, H, D) f32 tensor.  D from 1 to 256 (by_width)
+// and H a multiple of KV; any other shape returns cudaErrorInvalidValue.  bf16
 // inputs are copied 16 bytes at a time: their pointers must be 16-byte
 // aligned and their strides multiples of 8 elements, else
 // cudaErrorMisalignedAddress.  Returns the launch's cudaError_t (0 on
@@ -881,17 +940,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV ||
       (long long)(S + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;
-  const Args x{q, k, v, static_cast<float*>(out), B, S, H, KV,
+  const Args x{q, k, v, static_cast<float*>(out), B, S, H, KV, D,
                Strides{qsb, qss, qsh}, Strides{ksb, kss, ksh},
                Strides{vsb, vss, vsh}, static_cast<cudaStream_t>(stream)};
   if (bf16 && !(aligned16(q, x.qs) && aligned16(k, x.ks) &&
                 aligned16(v, x.vs)))
     return cudaErrorMisalignedAddress;
-  switch (D) {
-    case 16: return launch_d<16>(x, causal, bf16);
-    case 32: return launch_d<32>(x, causal, bf16);
-    case 64: return launch_d<64>(x, causal, bf16);
-    case 128: return launch_d<128>(x, causal, bf16);
-    default: return cudaErrorInvalidValue;
-  }
+  return by_width(D, bf16, [&](auto w) {
+    return launch_d<decltype(w)::value>(x, causal, bf16);
+  });
 }

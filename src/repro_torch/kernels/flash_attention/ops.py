@@ -25,9 +25,13 @@ returns (B, S, H, D) f32.  ``bq = min(bq, S)`` and ``bk = min(bk, S)``,
 and ``S % bq`` or ``S % bk`` not 0 raises ``ValueError`` where the
 reference asserts.  Under causal masking the kernel's key loop stops at
 the diagonal: future key tiles are SKIPPED, where the TPU kernel GATED
-them with ``pl.when``; the numerics are the same.  The kernel takes D in
-{16, 32, 64, 128}, reads q, k and v through their strides (last dimension
-contiguous) and never repeats K/V heads in memory; its key tile is its
+them with ``pl.when``; the numerics are the same.  The kernel takes any
+head dim D from 1 to :data:`MAX_HEAD_DIM` (the reference's K4 takes the
+whole head as one block): it is compiled at the widths :data:`WIDTHS`,
+and a head runs the first width at least as wide (:func:`width`) with
+the missing columns read as zeros, its scale 1/sqrt(D) of its own D.  It
+reads q, k and v through their strides (last dimension contiguous) and
+never repeats K/V heads in memory or pads them; its key tile is its
 own, so ``bq``/``bk`` only decide which shapes are legal.
 
 The input type picks the variant (``kernel_info``).  At
@@ -41,7 +45,7 @@ stages.  The chain of product, softmax and product inside a block bounds
 it, and several resident blocks per SM hide it (the source note says
 how).  TMA reads 16-byte aligned rows: bf16 inputs need 16-byte aligned
 pointers and strides that are multiples of 8 elements, and a view that
-is not raises, as does a head dim without a kernel.  f32 stays on the
+is not raises, as does a head dim above MAX_HEAD_DIM.  f32 stays on the
 FMA kernel, bound by the f32 FMA pipes: the tensor cores' TF32 would
 keep about three decimal digits, where the f32 checks need full f32,
 and the FMA kernel is already faster than PyTorch's f32 attention at
@@ -65,8 +69,12 @@ LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
     {"flash_attention": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_I, _I, _P],
      "flash_attention_info": [_I, _I, _I, _P]})
-#: the head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128)
+#: the head widths the kernel is built for; a head dim up to
+#: MAX_HEAD_DIM runs the first at least as wide (``csrc``'s ``by_width``)
+#: that its type has: f32 has no 80 (heads of 65 to 96 run 96)
+WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 256)
+F32_WIDTHS = tuple(w for w in WIDTHS if w != 80)
+MAX_HEAD_DIM = WIDTHS[-1]
 NEG_INF = -1e30
 #: the profiler range around each backward of K4's autograd Function
 BACKWARD_RANGE = "flash_attention.backward"
@@ -142,6 +150,16 @@ def flash_attention_plain(q, k, v, *, bq=128, bk=128, causal=True):
     return out.reshape(B, H, S, D).transpose(1, 2).contiguous()
 
 
+def width(D: int, dtype=torch.bfloat16) -> int:
+    """The kernel width that runs heads of ``D`` columns in ``dtype``;
+    raises for a head dim the kernel does not take."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dims 1 to {MAX_HEAD_DIM}, "
+                         f"got {D}")
+    widths = F32_WIDTHS if dtype == torch.float32 else WIDTHS
+    return next(w for w in widths if w >= D)
+
+
 def _check_cuda(q, k, v, D) -> None:
     if not (q.device == k.device == v.device and q.device.type == "cuda"):
         raise ValueError(f"q, k and v must lie on one CUDA device, got "
@@ -150,8 +168,7 @@ def _check_cuda(q, k, v, D) -> None:
             torch.float32, torch.bfloat16):
         raise TypeError(f"q, k and v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype} and {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    width(D)
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k and v must be contiguous in their last "
                          "dimension")
@@ -167,19 +184,21 @@ def _check_cuda(q, k, v, D) -> None:
 
 def kernel_info(dtype, D: int, causal: bool = True) -> dict:
     """What the library runs for inputs of ``dtype`` and head dim ``D``:
-    the variant, registers and local memory (spills, stack) per thread,
-    dynamic shared memory per block and resident blocks per SM, from the
-    CUDA runtime (builds the library); raises where it has no kernel."""
-    if dtype not in (torch.float32, torch.bfloat16) or D not in HEAD_DIMS:
+    the variant, its width, registers and local memory (spills, stack)
+    per thread, dynamic shared memory per block and resident blocks per
+    SM, from the CUDA runtime (builds the library); raises where it has
+    no kernel."""
+    if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"no flash-attention kernel for {dtype} at D {D}")
-    info = (ctypes.c_int * 5)()
+    width(D)
+    info = (ctypes.c_int * 6)()
     err = LIBRARY.lib().flash_attention_info(
         D, int(dtype == torch.bfloat16), int(causal), info)
     if err:
         raise RuntimeError(f"flash_attention_info failed: CUDA error {err}")
-    return {"variant": VARIANTS[info[0]], "registers": info[1],
-            "local_bytes": info[2], "smem_bytes": info[3],
-            "blocks_per_sm": info[4]}
+    return {"variant": VARIANTS[info[0]], "width": info[5],
+            "registers": info[1], "local_bytes": info[2],
+            "smem_bytes": info[3], "blocks_per_sm": info[4]}
 
 
 def flash_attention_backward(q, k, v, dout, *, causal=True, chunk=1024):
@@ -319,6 +338,8 @@ def flash_attention(q, k, v, *, bq=128, bk=128, causal=True):
 
 flash_attention.launches = 0
 
-__all__ = ["BACKWARD_RANGE", "HEAD_DIMS", "LIBRARY", "flash_attention",
-           "flash_attention_backward", "flash_attention_flops", "flash_attention_plain",
-           "flash_attention_ref", "kernel_info"]
+__all__ = ["BACKWARD_RANGE", "F32_WIDTHS", "LIBRARY", "MAX_HEAD_DIM",
+           "WIDTHS",
+           "flash_attention", "flash_attention_backward",
+           "flash_attention_flops", "flash_attention_plain",
+           "flash_attention_ref", "kernel_info", "width"]

@@ -50,7 +50,8 @@
 //    and lm_head's 594 blocks are resident at once: a second round of
 //    blocks would run as a latency-bound tail.  Rows past 8 are more row
 //    tiles in the grid, next to each other so that they share the weights
-//    in L2.  Each kept value gathers 32 bytes of A from shared memory,
+//    in L2; rows past M (a decode at batch 1 to 7) read A as zeros and are
+//    not written.  Each kept value gathers 32 bytes of A from shared memory,
 //    139 MB at ffn_gate_up; timed with parts cut out (study.py beside
 //    ops.py) on an H100 SXM at 700 W, the gathers take a fifth of that
 //    cell's time and the loads alone 1.86x its byte bound.
@@ -69,7 +70,19 @@
 //    so the register-fed mma needs neither wgmma's descriptor layouts nor
 //    its asynchronous fences.
 //
-// Both paths split K: the plan cuts K/m into a power of two of K-slices,
+// 3. general (any 1 <= n < m <= 16, any M and N; CUDA cores).  The five
+//    (n, m) above are compiled into the two paths; every other pattern,
+//    and a row of values or offsets that does not start 16-byte aligned
+//    (N not a multiple of 4 in f32 or 8 in bf16), runs general_kernel,
+//    which takes n and m at run time: a thread per output column and 8
+//    rows, A staged as on the narrow path, one load per kept value and
+//    offset (GU of them in flight a thread), the same n FMAs a group.
+//    It is a kernel of its own, not a fallback, and it is slower than
+//    the compiled paths: none of its cells is a decode of a configuration
+//    the repository serves.  m above 16 is refused (offset_bits stops at
+//    4 bits), though int8 offsets could name it.
+//
+// Every path splits K: the plan cuts K/m into a power of two of K-slices,
 // at most 16, of whole stages (so of whole groups and whole bytes of
 // packed offsets), the first that puts 2 waves of blocks on the card's
 // SMs.  The slices of one output tile are one thread-block cluster (past
@@ -98,8 +111,10 @@ namespace {
 
 constexpr int MAX_SPLIT = 16;  // a cluster, past the portable 8
 
-// (m - 1).bit_length() for 2 <= m <= 8: the width of one CP offset
-constexpr int offset_bits(int m) { return m <= 2 ? 1 : m <= 4 ? 2 : 3; }
+// (m - 1).bit_length() for 2 <= m <= 16: the width of one CP offset
+__host__ __device__ constexpr int offset_bits(int m) {
+  return m <= 2 ? 1 : m <= 4 ? 2 : m <= 8 ? 3 : 4;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -243,15 +258,17 @@ __device__ __forceinline__ void load_offs(const uint8_t* p,
   }
 }
 
-// grid (split, M / 8, ceil(N / COLS)), clusters of (split, 1, 1): block
-// (s, i, j) sums K-slice s (groups [s*gs, min((s+1)*gs, K/m))) of the
-// output tile (i, j).  Thread (h, c) copies every NRS-th compressed row
-// of column group c from row h, and sums output rows h*RPT ... of it.
+// grid (split, ceil(M / 8), ceil(N / COLS)), clusters of (split, 1, 1):
+// block (s, i, j) sums K-slice s (groups [s*gs, min((s+1)*gs, K/m))) of
+// the output tile (i, j); rows past M read A as zeros and are not
+// written, and N is a multiple of VC.  Thread (h, c) copies every NRS-th
+// compressed row of column group c from row h, and sums output rows
+// h*RPT ... of it.
 template <int NN, int MM, typename T, bool PACKED>
 __global__ void __launch_bounds__(NT)
 narrow_kernel(const T* __restrict__ a, const T* __restrict__ vals,
               const uint8_t* __restrict__ idx, float* __restrict__ out,
-              int K, int N, int gs) {
+              int M, int K, int N, int gs) {
   using P = Narrow<NN, MM, T, PACKED>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Vs = reinterpret_cast<T*>(smem);
@@ -312,7 +329,9 @@ narrow_kernel(const T* __restrict__ a, const T* __restrict__ vals,
 #pragma unroll
     for (int q = 0; q < NR * P::CH / NT; ++q) {
       const int e = tid + q * NT, r = e / P::CH, k = k0 + e % P::CH;
-      x[q] = k < k_end ? to_f32(a[(size_t)(row0 + r) * K + k]) : 0.f;
+      x[q] = k < k_end && row0 + r < M
+                 ? to_f32(a[(size_t)(row0 + r) * K + k])
+                 : 0.f;
     }
   };
   fetch(0);
@@ -371,12 +390,13 @@ narrow_kernel(const T* __restrict__ a, const T* __restrict__ vals,
     if (live)
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
+        if (row0 + h * RPT + r < M)
 #pragma unroll
-        for (int c = 0; c < P::VC; c += 4)
-          *reinterpret_cast<float4*>(out + (size_t)(row0 + h * RPT + r) * N +
-                                     col + c) =
-              make_float4(acc[r][c], acc[r][c + 1], acc[r][c + 2],
-                          acc[r][c + 3]);
+          for (int c = 0; c < P::VC; c += 4)
+            *reinterpret_cast<float4*>(
+                out + (size_t)(row0 + h * RPT + r) * N + col + c) =
+                make_float4(acc[r][c], acc[r][c + 1], acc[r][c + 2],
+                            acc[r][c + 3]);
     return;
   }
   __syncthreads();  // the ring is free: the partial tile goes there
@@ -391,10 +411,119 @@ narrow_kernel(const T* __restrict__ a, const T* __restrict__ vals,
   const int col0 = blockIdx.z * P::COLS;
   cluster_reduce(red, NR * P::COLS, NT, [&](int e4, float4 sum) {
     const int r = e4 / (P::COLS / 4), c = col0 + (e4 % (P::COLS / 4)) * 4;
-    if (c < N)
+    if (c < N && row0 + r < M)
       *reinterpret_cast<float4*>(out + (size_t)(row0 + r) * N + c) = sum;
   });
 }
+
+// ---------------------------------------------------------------------
+// general path: any n:m (1 <= n < m <= 16), any N, any M; CUDA cores
+constexpr int GT = 128;  // threads per block: one output column each
+constexpr int GU = 8;    // compressed rows whose loads a thread has in flight
+
+// grid (split, ceil(M / 8), ceil(N / GT)), clusters of (split, 1, 1):
+// block (s, i, j) sums K-slice s (groups [s*gs, min((s+1)*gs, K/m))) of
+// the 8 x GT output tile (i, j); thread c owns column j*GT + c and its 8
+// rows.  A's rows are staged `chunk` groups at a time, k-major in f32 with
+// a zero row after each group, as on the narrow path, and each kept value
+// is multiplied with the A row its offset names (n FMAs per group and
+// row).  Values and offsets are read one element per thread and row, GU
+// rows at a time: a row of N values may start anywhere, so nothing wider
+// is aligned, and no load reaches past a row's N columns.
+// (The minimum of 4 blocks an SM lets the compiler use up to 128
+// registers; with the thread count alone it spilled to reach 80.)
+template <typename T, bool PACKED>
+__global__ void __launch_bounds__(GT, 4)
+general_kernel(const T* __restrict__ a, const T* __restrict__ vals,
+               const uint8_t* __restrict__ idx, float* __restrict__ out,
+               int M, int K, int N, int n, int m, int gs, int chunk) {
+  extern __shared__ __align__(16) float As[];  // [chunk][m + 1][NR]
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.y * NR, col0 = blockIdx.z * GT;
+  const int col = col0 + tid;
+  const bool live = col < N;
+  const int g0 = blockIdx.x * gs;
+  const int g1 = min(K / m, g0 + gs);
+  const int bits = offset_bits(m), per = 8 / bits;
+  float acc[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) acc[r] = 0.f;
+
+  for (int c0 = g0; c0 < g1; c0 += chunk) {
+    const int c1 = min(g1, c0 + chunk), slots = (c1 - c0) * (m + 1);
+    __syncthreads();  // the last chunk's gathers are done
+    for (int e = tid; e < slots * NR; e += GT) {  // k fastest: coalesced
+      const int r = e / slots, j = e - r * slots;
+      const int g = j / (m + 1), p = j - g * (m + 1);
+      float x = 0.f;
+      if (p < m && row0 + r < M)
+        x = to_f32(a[(size_t)(row0 + r) * K + (size_t)(c0 + g) * m + p]);
+      As[j * NR + r] = x;
+    }
+    __syncthreads();
+    if (!live) continue;
+    const int q1 = c1 * n;
+    for (int q0 = c0 * n; q0 < q1; q0 += GU) {
+      float v[GU];
+      unsigned o[GU];
+#pragma unroll
+      for (int u = 0; u < GU; ++u) {
+        const int q = q0 + u;
+        v[u] = q < q1 ? to_f32(vals[(size_t)q * N + col]) : 0.f;
+        o[u] = q < q1 ? idx[(size_t)(PACKED ? q / per : q) * N + col] : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < GU; ++u) {
+        const int q = q0 + u;
+        if (q >= q1) break;
+        unsigned off = o[u];
+        if (PACKED) off = (off >> ((q % per) * bits)) & ((1u << bits) - 1);
+        off = min(off, (unsigned)m);  // >= m: the zero row, as the one-hot
+        const float* ar = As + ((q / n - c0) * (m + 1) + off) * NR;
+        const float4 lo = *reinterpret_cast<const float4*>(ar);
+        const float4 hi = *reinterpret_cast<const float4*>(ar + 4);
+        acc[0] = fmaf(lo.x, v[u], acc[0]);
+        acc[1] = fmaf(lo.y, v[u], acc[1]);
+        acc[2] = fmaf(lo.z, v[u], acc[2]);
+        acc[3] = fmaf(lo.w, v[u], acc[3]);
+        acc[4] = fmaf(hi.x, v[u], acc[4]);
+        acc[5] = fmaf(hi.y, v[u], acc[5]);
+        acc[6] = fmaf(hi.z, v[u], acc[6]);
+        acc[7] = fmaf(hi.w, v[u], acc[7]);
+      }
+    }
+  }
+
+  const bool whole_k = gridDim.x == 1;
+  if (whole_k) {
+    if (live)
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+        if (row0 + r < M) out[(size_t)(row0 + r) * N + col] = acc[r];
+    return;
+  }
+  __syncthreads();  // the staged A is free: the partial tile goes there
+  float* red = As;  // [NR][GT]
+#pragma unroll
+  for (int r = 0; r < NR; ++r) red[r * GT + tid] = acc[r];
+  cluster_reduce(red, NR * GT, GT, [&](int e4, float4 sum) {
+    const int r = row0 + e4 / (GT / 4), c = col0 + (e4 % (GT / 4)) * 4;
+    const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
+    if (r < M)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (c + i < N) out[(size_t)r * N + c + i] = s4[i];
+  });
+}
+
+// its dynamic shared memory: the staged A, which the partial tile reuses
+size_t general_smem(int m, int chunk) {
+  const size_t a = (size_t)chunk * (m + 1) * NR * sizeof(float);
+  const size_t red = (size_t)NR * GT * sizeof(float);
+  return a > red ? a : red;
+}
+// A's groups staged at a time: about 256 k rows
+int general_chunk(int m) { return 256 / m > 1 ? 256 / m : 1; }
 
 // ---------------------------------------------------------------------
 // wide path: bf16 on the tensor cores, BM (64 or 128) x 64 output tiles
@@ -670,17 +799,32 @@ cudaError_t launch(const Args& x, dim3 grid, int threads, size_t smem,
 template <int NN, int MM, typename T, bool PACKED>
 cudaError_t launch_narrow(const Args& x) {
   using P = Narrow<NN, MM, T, PACKED>;
-  if (x.M % NR || x.gs % P::G) return cudaErrorInvalidValue;
-  const dim3 grid(x.split, x.M / NR, (x.N + P::COLS - 1) / P::COLS);
+  if (x.N % P::VC || x.gs % P::G) return cudaErrorInvalidValue;
+  const dim3 grid(x.split, (x.M + NR - 1) / NR, (x.N + P::COLS - 1) / P::COLS);
   return launch<narrow_kernel<NN, MM, T, PACKED>>(
       x, grid, NT, P::SMEM, static_cast<const T*>(x.a),
-      static_cast<const T*>(x.vals), x.idx, x.out, x.K, x.N, x.gs);
+      static_cast<const T*>(x.vals), x.idx, x.out, x.M, x.K, x.N, x.gs);
+}
+
+// its shared memory depends on m: the opt-in covers every m (under 48 KB)
+constexpr size_t GENERAL_MAX_SMEM = 48 * 1024;
+
+template <typename T, bool PACKED>
+cudaError_t launch_general(const Args& x, int n, int m) {
+  const cudaError_t e = opt_in<general_kernel<T, PACKED>>(GENERAL_MAX_SMEM);
+  if (e != cudaSuccess) return e;
+  const int chunk = general_chunk(m);
+  const dim3 grid(x.split, (x.M + NR - 1) / NR, (x.N + GT - 1) / GT);
+  return launch<general_kernel<T, PACKED>>(
+      x, grid, GT, general_smem(m, chunk), static_cast<const T*>(x.a),
+      static_cast<const T*>(x.vals), x.idx, x.out, x.M, x.K, x.N, n, m, x.gs,
+      chunk);
 }
 
 template <int NN, int MM, int BM, bool PACKED>
 cudaError_t launch_wide(const Args& x) {
   using P = Wide<NN, MM, BM, PACKED>;
-  if (x.K % 8 || x.gs % P::G) return cudaErrorInvalidValue;
+  if (x.K % 8 || x.N % 16 || x.gs % P::G) return cudaErrorInvalidValue;
   const dim3 grid(x.split, (x.M + BM - 1) / BM, (x.N + WN - 1) / WN);
   return launch<wide_kernel<NN, MM, BM, PACKED>>(
       x, grid, P::THREADS, P::SMEM, static_cast<const __nv_bfloat16*>(x.a),
@@ -755,6 +899,14 @@ cudaError_t info_nm(int packed, int kernel, int bf16, int* info) {
                 : info_path<NN, MM, false>(kernel, bf16, info);
 }
 
+template <typename T, bool PACKED>
+cudaError_t info_general(int m, int* info) {
+  const cudaError_t e = opt_in<general_kernel<T, PACKED>>(GENERAL_MAX_SMEM);
+  if (e != cudaSuccess) return e;
+  return kernel_info<general_kernel<T, PACKED>>(
+      general_smem(m, general_chunk(m)), GT, 1, info);
+}
+
 }  // namespace
 
 // What serves (n, m, packed, kernel, bf16), in info[0..5]: m-groups per
@@ -762,10 +914,20 @@ cudaError_t info_nm(int packed, int kernel, int bf16, int* info) {
 // thread, local memory per thread in bytes (spills and stack), dynamic
 // shared memory per block in bytes, resident blocks per SM, threads per
 // block.  kernel 0 = narrow (CUDA cores), 1 and 2 = wide (bf16 tensor
-// cores) with 64- and 128-row tiles.  Returns cudaErrorInvalidValue for
-// an (n, m) or kernel that the library does not hold.
+// cores) with 64- and 128-row tiles, for the five compiled (n, m); 3 =
+// general (CUDA cores) for any 1 <= n < m <= 16, with a stage of one
+// group.  Returns cudaErrorInvalidValue for an (n, m) or kernel that the
+// library does not hold.
 extern "C" int nm_spmm_info(int n, int m, int packed, int kernel, int bf16,
                             int* info) {
+  if (kernel == 3) {
+    if (n < 1 || n >= m || m > 16) return cudaErrorInvalidValue;
+    if (bf16)
+      return packed ? info_general<__nv_bfloat16, true>(m, info)
+                    : info_general<__nv_bfloat16, false>(m, info);
+    return packed ? info_general<float, true>(m, info)
+                  : info_general<float, false>(m, info);
+  }
   if (n == 2 && m == 4) return info_nm<2, 4>(packed, kernel, bf16, info);
   if (n == 1 && m == 4) return info_nm<1, 4>(packed, kernel, bf16, info);
   if (n == 2 && m == 6) return info_nm<2, 6>(packed, kernel, bf16, info);
@@ -778,20 +940,23 @@ extern "C" int nm_spmm_info(int n, int m, int packed, int kernel, int bf16,
 // aligned (else cudaErrorMisalignedAddress); the stream is a
 // cudaStream_t.  idx holds int8 offsets (packed = 0) or bit-packed uint8
 // (packed = 1).  The plan: kernel (0 narrow; 1 and 2 wide, bf16 only,
-// with 64- and 128-row tiles), split K-slices of gs m-groups each (gs a
-// multiple of the kernel's stage groups, the last slice non-empty, split
-// <= 16).  The kernel reads 16 bytes of neighbouring columns per thread:
-// N must be a multiple of 16; narrow needs M % 8 == 0, wide K % 8 == 0.
-// Anything else returns cudaErrorInvalidValue; otherwise the launch's
-// cudaError_t (0 on success).
+// with 64- and 128-row tiles; these three for the five compiled (n, m)
+// only; 3 general, any 1 <= n < m <= 16), split K-slices of gs m-groups
+// each (gs a multiple of the kernel's stage groups, the last slice
+// non-empty, split <= 16).  The narrow path reads 16 bytes of
+// neighbouring columns per thread, so N must be a multiple of 4 (f32) or
+// 8 (bf16) there; the wide path needs N % 16 == 0 and K % 8 == 0; the
+// general path takes any M, N.  Anything else returns
+// cudaErrorInvalidValue; otherwise the launch's cudaError_t (0 on
+// success).
 extern "C" int nm_spmm(const void* a, const void* vals, const void* idx,
                        void* out, int M, int K, int N, int n, int m,
                        int packed, int bf16, int kernel, int split, int gs,
                        void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || n <= 0 || m < 2 || m > 8 || K % m ||
-      N % 16 || split < 1 || split > MAX_SPLIT || gs <= 0 ||
+  if (M <= 0 || K <= 0 || N <= 0 || n <= 0 || n >= m || m > 16 || K % m ||
+      split < 1 || split > MAX_SPLIT || gs <= 0 ||
       (long long)(split - 1) * gs >= K / m || (long long)split * gs < K / m ||
-      (N + 255) / 256 > 65535 || (M + 7) / 8 > 65535)
+      (N + GT - 1) / GT > 65535 || (M + 7) / 8 > 65535)
     return cudaErrorInvalidValue;
   if (packed && ((K / m) * n) % (8 / offset_bits(m)))
     return cudaErrorInvalidValue;
@@ -800,6 +965,13 @@ extern "C" int nm_spmm(const void* a, const void* vals, const void* idx,
   const Args x{a, vals, static_cast<const uint8_t*>(idx),
                static_cast<float*>(out), M, K, N, split, gs,
                static_cast<cudaStream_t>(stream)};
+  if (kernel == 3) {
+    if (bf16)
+      return packed ? launch_general<__nv_bfloat16, true>(x, n, m)
+                    : launch_general<__nv_bfloat16, false>(x, n, m);
+    return packed ? launch_general<float, true>(x, n, m)
+                  : launch_general<float, false>(x, n, m);
+  }
   if (n == 2 && m == 4) return launch_nm<2, 4>(x, packed, kernel, bf16);
   if (n == 1 && m == 4) return launch_nm<1, 4>(x, packed, kernel, bf16);
   if (n == 2 && m == 6) return launch_nm<2, 6>(x, packed, kernel, bf16);

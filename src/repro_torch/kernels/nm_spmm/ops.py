@@ -15,20 +15,23 @@ bf16; ``w_vals`` (K/m*n, N) of A's type; ``w_idx`` the CP offsets, int8
 (M, N) f32.  Tiles are clamped as the reference clamps them (``bm =
 min(bm, M)``, likewise ``bk``, ``bn``), and what the reference asserts
 raises: ``K % bk``, ``bk % m``, ``M % bm``, ``N % bn`` and, packed,
-``(bk/m*n) % per``.  The kernel takes ``bm`` in {8, 16, 32, 64, 128},
-``bn`` in {32, 64, 128} and (n, m) in :data:`NM_PAIRS`; ``bm``, ``bk``
-and ``bn`` only decide which shapes are legal: the kernel picks its own
-tiles.
+``(bk/m*n) % per``.  Everything the reference takes, the kernels take
+on the card, with 1 <= n < m <= :data:`MAX_M`: any M, N, bm, bk and bn;
+``bm``, ``bk`` and ``bn`` only decide which shapes are legal: the kernel
+picks its own tiles.
 
 Which kernel runs, its K split and its tiles come from :func:`plan`, a
 pure function of (M, K, N, n, m, dtype, SM count) that the wrapper
-passes to the C interface: the narrow path (f32 at any M, bf16 at M <=
-32) on the CUDA cores, 16 bytes of neighbouring columns per thread; the
-wide path (bf16, M > 32, K % 8 == 0) on the tensor cores.  Both split K
-into slices of whole ring stages, reduced in a fixed order inside one
-thread-block cluster, so that repeated calls give the same bits.  The
-kernel reads 16 bytes of columns at a time: N must be a multiple of 16
-(every N that a legal ``bn`` divides is) and the three inputs 16-byte
+passes to the C interface.  For the (n, m) of :data:`NM_PAIRS`, compiled
+into the kernels, and N a multiple of 4 (f32) or 8 (bf16), so that every
+row starts 16-byte aligned: the narrow path (f32 at any M, bf16 at M <=
+32) on the CUDA cores, 16 bytes of neighbouring columns per thread,
+rows past M predicated; the wide path (bf16, M > 32, K % 8 == 0, N %
+16 == 0) on the tensor cores.  Every other (n, m) and N: the general
+path, a narrow kernel that takes n and m at run time and reads one
+element at a time.  All split K into slices of whole ring stages,
+reduced in a fixed order inside one thread-block cluster, so that
+repeated calls give the same bits.  The three inputs must start 16-byte
 aligned, else the wrapper raises.
 """
 from __future__ import annotations
@@ -51,13 +54,14 @@ LIBRARY = CudaLibrary(
     Path(__file__).resolve().parent / "csrc" / "nm_spmm.cu",
     {"nm_spmm": [_P, _P, _P, _P] + [_I] * 10 + [_P],
      "nm_spmm_info": [_I] * 5 + [_P]})
-#: the (n, m) patterns the kernel is built for: the JAX package's set
+#: the (n, m) patterns compiled into the narrow and wide paths: the JAX
+#: package's set; any other 1 <= n < m <= MAX_M runs the general path
 NM_PAIRS = ((2, 4), (1, 4), (2, 6), (2, 8), (4, 8))
-_KERNEL_BM = (8, 16, 32, 64, 128)
-_KERNEL_BN = (32, 64, 128)
+MAX_M = 16
 #: the kernels of ``csrc/nm_spmm.cu``, by the number the C interface
-#: takes: the narrow path, and the wide one with 64- and 128-row tiles
-KERNELS = {"narrow": 0, "wide64": 1, "wide128": 2}
+#: takes: the narrow path, the wide one with 64- and 128-row tiles, and
+#: the general path
+KERNELS = {"narrow": 0, "wide64": 1, "wide128": 2, "general": 3}
 #: the narrow path's block: groups of 16 bytes of neighbouring columns,
 #: output rows, and compressed rows per ring stage
 NARROW_GROUPS, NARROW_ROWS, NARROW_STAGE_ROWS = 64, 8, 8
@@ -65,8 +69,10 @@ NARROW_GROUPS, NARROW_ROWS, NARROW_STAGE_ROWS = 64, 8, 8
 #: M = 64; bf16 at M above NARROW_MAX_M goes wide
 WIDE_COLS = 64
 NARROW_MAX_M = 32
-#: the kernel reads (and the C interface requires) N in multiples of 16
+#: the wide path reads offsets 16 columns at a time: N % 16 == 0 there
 COLUMN_GROUP = 16
+#: the general path's block: one output column a thread
+GENERAL_COLS = 128
 
 
 @dataclass(frozen=True)
@@ -81,9 +87,11 @@ class Plan(SplitPlan):
 def stage_groups(path: str, n: int, m: int) -> int:
     """m-groups per ring stage: narrow stages hold 8 compressed rows,
     wide ones 64 dense k rows (48 at m = 6: whole groups, 16-deep
-    products)."""
+    products); the general path's slices may end at any group."""
     if path == "narrow":
         return NARROW_STAGE_ROWS // n
+    if path == "general":
+        return 1
     return (48 if m == 6 else 64) // m
 
 
@@ -91,27 +99,30 @@ def plan(M: int, K: int, N: int, n: int, m: int, dtype,
          sms: int = H100_SMS) -> Plan:
     """The kernel's path, K split and tiles for (M, K, N) at n:m.
 
-    bf16 with M above 32 and K % 8 == 0 takes the wide path (tensor
-    cores, tiles of 64 columns by 64 rows, 128 above M = 64);
-    everything else, f32 always, the narrow one (CUDA cores, 8 rows by
-    64 x 16 bytes of columns).  Both aim at two waves of blocks on
-    ``sms`` SMs (``splitk.split_aim``): K/m is cut into a power of two
-    of slices, at most 16, of whole stages, which hold whole groups and
-    whole bytes of packed offsets; raises for shapes the kernel does not
-    take."""
-    if (n, m) not in NM_PAIRS or K % m or M <= 0 or K <= 0 or N <= 0:
-        raise ValueError(f"no N:M kernel for ({M}, {K}, {N}) at {n}:{m}")
-    if N % COLUMN_GROUP:
-        raise ValueError(f"N={N} is not a multiple of {COLUMN_GROUP}: the "
-                         f"kernel reads 16 bytes of neighbouring columns")
+    An (n, m) outside :data:`NM_PAIRS`, or N not a multiple of 16 bytes
+    of values (4 in f32, 8 in bf16), takes the general path (CUDA cores,
+    8 rows by 128 columns, one element a thread).  Otherwise bf16 with M
+    above 32, K % 8 == 0 and N % 16 == 0 takes the wide path (tensor
+    cores, tiles of 64 columns by 64 rows, 128 above M = 64); everything
+    else, f32 always, the narrow one (CUDA cores, 8 rows by 64 x 16
+    bytes of columns).  Rows past M are predicated on every path.  All
+    aim at two waves of blocks on ``sms`` SMs (``splitk.split_aim``):
+    K/m is cut into a power of two of slices, at most 16, of whole
+    stages, which hold whole groups and whole bytes of packed offsets;
+    raises for shapes the kernels do not take (n, m outside 1 <= n < m
+    <= 16)."""
+    if (not 1 <= n < m <= MAX_M or K % m or M <= 0 or K <= 0
+            or N <= 0):
+        raise ValueError(f"no N:M kernel for ({M}, {K}, {N}) at {n}:{m}: "
+                         f"the kernels take 1 <= n < m <= {MAX_M}")
     bf16 = dtype == torch.bfloat16
-    if bf16 and M > NARROW_MAX_M and K % 8 == 0:
+    vc = 8 if bf16 else 4
+    if (n, m) not in NM_PAIRS or N % vc:
+        path, tile = "general", (NARROW_ROWS, GENERAL_COLS)
+    elif bf16 and M > NARROW_MAX_M and K % 8 == 0 and N % COLUMN_GROUP == 0:
         path, tile = "wide", (64 if M <= 64 else 128, WIDE_COLS)
     else:
-        if M % NARROW_ROWS:
-            raise ValueError(f"M={M} is not a multiple of {NARROW_ROWS}")
-        path = "narrow"
-        tile = (NARROW_ROWS, NARROW_GROUPS * (8 if bf16 else 4))
+        path, tile = "narrow", (NARROW_ROWS, NARROW_GROUPS * vc)
     tiles = math.ceil(M / tile[0]) * math.ceil(N / tile[1])
     groups, sg = K // m, stage_groups(path, n, m)
     split = min(split_aim(tiles, sms), math.ceil(groups / sg))
@@ -190,7 +201,7 @@ def nm_spmm_plain(a, w_vals, w_idx, *, n=2, m=4, bm=128, bk=128, bn=128,
     return out
 
 
-def _check_cuda(a, w_vals, w_idx, n, m, bm, bn, packed) -> None:
+def _check_cuda(a, w_vals, w_idx, packed) -> None:
     if not (a.device == w_vals.device == w_idx.device
             and a.device.type == "cuda"):
         raise ValueError(f"a, w_vals and w_idx must lie on one CUDA "
@@ -211,11 +222,6 @@ def _check_cuda(a, w_vals, w_idx, n, m, bm, bn, packed) -> None:
     if any(x.data_ptr() % 16 for x in (a, w_vals, w_idx)):
         raise ValueError("a, w_vals and w_idx must start 16-byte aligned: "
                          "the kernel copies 16 bytes at a time")
-    if (n, m) not in NM_PAIRS or bm not in _KERNEL_BM \
-            or bn not in _KERNEL_BN:
-        raise ValueError(f"the kernel takes (n, m) in {NM_PAIRS}, bm in "
-                         f"{_KERNEL_BM} and bn in {_KERNEL_BN}; got "
-                         f"({n}, {m}), bm={bm}, bn={bn}")
 
 
 def nm_spmm(a, w_vals, w_idx, *, n=2, m=4, bm=128, bk=128, bn=128,
@@ -227,7 +233,7 @@ def nm_spmm(a, w_vals, w_idx, *, n=2, m=4, bm=128, bk=128, bn=128,
     if all(x.device.type == "cpu" for x in (a, w_vals, w_idx)):
         return nm_spmm_plain(a, w_vals, w_idx, n=n, m=m, bm=bm, bk=bk,
                              bn=bn, packed=packed)
-    _check_cuda(a, w_vals, w_idx, n, m, bm, bn, packed)
+    _check_cuda(a, w_vals, w_idx, packed)
     p = plan(M, K, N, n, m, a.dtype, sm_count(a.device))
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     err = LIBRARY.lib().nm_spmm(
@@ -244,6 +250,6 @@ def nm_spmm(a, w_vals, w_idx, *, n=2, m=4, bm=128, bk=128, bn=128,
 
 nm_spmm.launches = 0
 
-__all__ = ["H100_SMS", "LIBRARY", "MAX_SPLIT", "NM_PAIRS", "Plan",
+__all__ = ["H100_SMS", "LIBRARY", "MAX_M", "MAX_SPLIT", "NM_PAIRS", "Plan",
            "kernel_info", "nm_spmm", "nm_spmm_plain", "nm_spmm_ref", "plan",
            "sm_count"]

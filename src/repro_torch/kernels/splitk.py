@@ -41,8 +41,9 @@ def split_aim(tiles: int, sms: int = H100_SMS) -> int:
 
 @dataclass(frozen=True)
 class SplitPlan:
-    """What a split-K kernel runs for one shape: the path (``narrow`` on
-    the CUDA cores or ``wide`` on the tensor cores), the K-slices of one
+    """What a split-K kernel runs for one shape: the path (``narrow`` or
+    ``general`` on the CUDA cores, ``wide`` on the tensor cores), the
+    K-slices of one
     output tile (``split``, one cluster), the output tile of a block and
     the grid (split, row tiles, column tiles)."""
     path: str
@@ -52,9 +53,9 @@ class SplitPlan:
 
     @property
     def kernel(self) -> str:
-        """The library's kernel: ``narrow``, or ``wide`` and its tile
-        rows (``wide128``)."""
-        return "narrow" if self.path == "narrow" else f"wide{self.tile[0]}"
+        """The library's kernel: ``wide`` and its tile rows
+        (``wide128``), else the path's name."""
+        return f"wide{self.tile[0]}" if self.path == "wide" else self.path
 
     @property
     def blocks(self) -> int:

@@ -237,9 +237,9 @@ def test_plan_takes_every_tile_the_wrapper_took(dtype):
     whole blocks that cover the run (the last not empty for the longest
     column), a tile that never spans two column blocks, a power-of-two
     split within one cluster."""
-    for bm in ops._KERNEL_BM:
+    for bm in (8, 16, 32, 64, 128):
         for bk in (32, 64, 96, 128, 256):
-            for bn in ops._KERNEL_BN:
+            for bn in (32, 64, 128):
                 for M in {bm, 2 * bm, 128}:
                     K, N = 3 * bk, 4 * bn
                     for run in (None, 1, 2, 3):
@@ -255,15 +255,73 @@ def test_plan_takes_every_tile_the_wrapper_took(dtype):
                         assert p.kernel in ops.KERNELS
 
 
+@pytest.mark.parametrize("bm,bk,bn", [(8, 4, 64), (8, 64, 8),
+                                      (8, 12, 64), (8, 64, 24),
+                                      (8, 20, 48)])
+def test_plan_raises_where_the_kernels_cannot_go(bm, bk, bn):
+    """What ``_check_cuda`` refuses, the plan refuses too: bk not a
+    multiple of 8 or bn not of 16 (A's or W's rows would not start
+    16-byte aligned), and tiles that do not divide the shape."""
+    with pytest.raises(ValueError, match="the kernel takes"):
+        ops.plan(768, 960, 768, bm, bk, bn, torch.float32)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        ops.plan(24, 64, 64, 16, 32, 32, torch.float32)   # M % bm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bm,bk,bn", [(12, 64, 64), (8, 48, 64),
                                       (8, 64, 16), (256, 64, 64),
                                       (8, 16, 32)])
-def test_plan_raises_where_the_kernels_cannot_go(bm, bk, bn):
-    """What ``_check_cuda`` refuses, the plan refuses too."""
-    with pytest.raises(ValueError, match="the kernel takes"):
-        ops.plan(768, 768, 768, bm, bk, bn, torch.float32)
-    with pytest.raises(ValueError, match="the kernel takes"):
-        ops.plan(24, 64, 64, 16, 32, 32, torch.float32)   # M % bm
+def test_plan_takes_the_tiles_it_once_refused(bm, bk, bn, dtype):
+    """Tiles the kernels refused before (bm outside {8, ..., 128}, bk
+    not a multiple of 32, bn outside {32, 64, 128}) have a plan: a grid
+    covering M and N, tiles that never span two column blocks, a
+    power-of-two split no longer than the run, each slice at most
+    ``slice_blocks`` of it; blocks that are not multiples
+    of 32 in both directions stay off the tensor cores."""
+    for M in (bm, 768):
+        p = ops.plan(M, 768, 768, bm, bk, bn, dtype)
+        assert p.grid[1] * p.tile[0] >= M > (p.grid[1] - 1) * p.tile[0]
+        assert p.grid[2] * p.tile[1] == 768 and bn % p.tile[1] == 0
+        assert p.split & (p.split - 1) == 0 and p.grid[0] == p.split
+        assert p.split <= 768 // bk
+        assert p.slice_blocks == -(-(768 // bk) // p.split)
+        assert p.path == ("wide" if dtype == torch.bfloat16 and M > 32
+                          and bk % 32 == 0 and bn % 32 == 0 else "narrow")
+
+
+#: shapes the kernels take since they widened (batch-1 and ragged rows,
+#: blocks of 8 to 24 k rows, 16- and 256-column blocks), as
+#: (M, K, N, bm, bk, bn), at the JAX package's default tiles where bm is
+#: clamped to M
+NEW_SHAPES = [(1, 64, 512, 128, 32, 256), (3, 64, 64, 128, 16, 16),
+              (1, 256, 512, 128, 128, 256), (24, 96, 96, 128, 8, 48),
+              (40, 120, 160, 8, 24, 32)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", NEW_SHAPES)
+def test_plain_kernels_match_reference_at_new_shapes(shape, dtype):
+    """The plain versions against the JAX package's interpret-mode
+    kernels at shapes the CUDA kernels take since they widened."""
+    jdt, tdt, tol = DTYPES[dtype]
+    M, K, N, bm, bk, bn = shape
+    bm = min(bm, M)
+    a, w, mask = _case(M + K + N, 0.4, M=M, K=K, N=N, bk=bk, bn=bn)
+    ja, jw, jm = jnp.asarray(a, jdt), jnp.asarray(w, jdt), jnp.asarray(mask)
+    jwm = jw * jnp.repeat(jnp.repeat(jm.astype(jw.dtype), bk, 0), bn, 1)
+    ki, ji = ref_block_indices(mask)
+    want_g = np.asarray(ref_gated_mm(ja, jw, jm, bm=bm, bk=bk, bn=bn))
+    want_s = np.asarray(ref_skip_mm(ja, jwm, jnp.asarray(ki),
+                                    jnp.asarray(ji), bm=bm, bk=bk, bn=bn))
+    ta, tw, twm = _torch(a, jdt, tdt), _torch(w, jdt, tdt), _torch(
+        np.asarray(jwm.astype(jnp.float32)), jdt, tdt)
+    got_g = gated_mm(ta, tw, mask, bm=bm, bk=bk, bn=bn)
+    got_s = skip_mm(ta, twm, *block_indices(mask), bm=bm, bk=bk, bn=bn)
+    np.testing.assert_allclose(got_g.numpy(), want_g, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got_s.numpy(), want_s, atol=tol, rtol=tol)
+    p = ops.plan(M, K, N, bm, bk, bn, tdt)
+    assert p.grid[1] * p.tile[0] >= M and p.grid[2] * p.tile[1] == N
 
 
 @pytest.mark.parametrize("tiles,sms,aim", [
@@ -450,6 +508,55 @@ def test_cuda_uneven_runs(M, dtype, bn):
     assert torch.equal(got_g[:, :bn], torch.zeros_like(got_g[:, :bn]))
 
 
+#: the shape classes the kernels take since they widened, on the card:
+#: (M, K, N, bm, bk, bn, dtype): decodes at batch 1 and 3 (qwen2-0.5b's
+#: ffn_gate_up), a ragged bf16 M on the wide path, blocks of 8, 16, 24
+#: and 48 k rows, 16-, 48- and 256-column blocks, and the JAX package's
+#: own test shape (tests/test_kernels.py: 32 x 128 x 128, blocks of 32)
+CARD_SHAPES = [
+    (1, 896, 9728, 1, 64, 64, torch.float32),
+    (3, 896, 9728, 3, 64, 64, torch.bfloat16),
+    (40, 512, 1024, 40, 64, 256, torch.bfloat16),
+    (96, 384, 512, 32, 128, 256, torch.bfloat16),
+    (5, 256, 256, 5, 8, 16, torch.float32),
+    (24, 192, 96, 8, 16, 48, torch.bfloat16),
+    (72, 240, 160, 8, 24, 32, torch.bfloat16),
+    (7, 480, 512, 7, 48, 512, torch.float32),
+    (32, 128, 128, 32, 32, 32, torch.float32),
+    (32, 128, 128, 32, 32, 32, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_cuda_new_shapes(shape):
+    """On the card: K1 (nonzero list) and K2 against their plain
+    versions at 1e-5 of the largest magnitude, each call one launch, a
+    repeat launch the same bits, the path the plan names."""
+    M, K, N, bm, bk, bn, dtype = shape
+    nbk, nbn = K // bk, N // bn
+    mask = (np.random.default_rng(M + K).random((nbk, nbn)) < 0.3
+            ).astype(np.int32)
+    mask[:, 1 % nbn] = 1
+    a, w, wm, m = _card_case(M, K, N, mask, dtype, bk, bn, M + bk)
+    ki, ji = block_indices(mask)
+    blocks = block_list(ki, ji, mask.shape, a.device)
+    kw = dict(bm=bm, bk=bk, bn=bn)
+    before = (skip_mm.launches, gated_mm.launches)
+    got_s, got_g = skip_mm(a, wm, blocks, **kw), gated_mm(a, w, m, **kw)
+    again_s, again_g = skip_mm(a, wm, blocks, **kw), gated_mm(a, w, m, **kw)
+    want = skip_mm_plain(a, wm, ki, ji, **kw)
+    torch.cuda.synchronize()
+    assert (skip_mm.launches, gated_mm.launches) == (before[0] + 2,
+                                                     before[1] + 2)
+    assert _rel_err(got_s, want) <= CARD_TOL
+    assert _rel_err(got_g, want) <= CARD_TOL
+    assert torch.equal(got_s, again_s) and torch.equal(got_g, again_g)
+    p = ops.plan(M, K, N, bm, bk, bn, dtype, ops.sm_count(a.device))
+    assert p.path == ("wide" if dtype == torch.bfloat16 and M > 32
+                      and bk % 32 == 0 and bn % 32 == 0 else "narrow")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cell", ["ffn_gate_up", "ffn_down"])
 def test_cuda_repeat_launches_are_bit_identical(cell):
@@ -482,10 +589,12 @@ def test_cuda_each_variant_has_no_local_memory(gate):
     for kernel, dtype in (("narrow", torch.float32),
                           ("narrow", torch.bfloat16),
                           ("wide128", torch.bfloat16)):
-        for tn in (32, 64):
-            info = ops.kernel_info(kernel, tn, dtype, gate)
-            assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
-            assert info["stage_rows"] == ops.STAGE_ROWS
+        for tn in (16, 32, 64) if kernel == "narrow" else (32, 64):
+            for frag in (False, True) if kernel == "narrow" else (False,):
+                info = ops.kernel_info(kernel, tn, dtype, gate, frag)
+                assert info["local_bytes"] == 0
+                assert info["blocks_per_sm"] >= 1
+                assert info["stage_rows"] == ops.STAGE_ROWS
     for M, dtype, kernel in ((8, torch.float32, "narrow"),
                              (32, torch.bfloat16, "narrow"),
                              (64, torch.bfloat16, "wide128"),

@@ -142,6 +142,40 @@ def test_heads_must_group():
         flash_attention(tq, tk, tv)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [72, 80, 96, 112, 256])
+def test_matches_reference_at_other_head_dims(D, causal):
+    """Head dims the kernel takes since it widened (phi-2's 80,
+    phi-3-mini's 96, gemma-7b's 256 and two between widths): the plain
+    version against the JAX package's interpret-mode kernel, GQA 4 over
+    2, at its f32 tolerance."""
+    (jq, jk, jv), (tq, tk, tv) = _case(1, 128, 4, 2, D, "float32", D)
+    want = np.asarray(ref_flash(jq, jk, jv, bq=64, bk=64, causal=causal))
+    got = flash_attention(tq, tk, tv, bq=64, bk=64, causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D,width", [(8, 16), (16, 16), (17, 32),
+                                     (48, 48), (72, 80), (100, 112),
+                                     (129, 160), (200, 256), (256, 256)])
+def test_head_dims_run_the_next_width(D, width):
+    """A head dim runs the first compiled width at least as wide; f32
+    has no width 80 (65 to 96 run 96)."""
+    assert ops.width(D) == width and width in ops.WIDTHS
+    f32 = ops.width(D, torch.float32)
+    assert f32 == (96 if width == 80 else width) and f32 in ops.F32_WIDTHS
+
+
+@pytest.mark.parametrize("D", [0, 264, 512])
+def test_head_dims_past_the_widths_raise(D):
+    """Head dims above 256 (and 0) have no kernel: raises before any
+    launch, here on the CPU through the width it would take."""
+    with pytest.raises(ValueError, match="head dims"):
+        ops.width(D)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.kernel_info(torch.bfloat16, D)
+
+
 def _grads(fn, xs, dout):
     """(dq, dk, dv) of ``(fn(*xs) * dout).sum()`` by autograd."""
     xs = [x.detach().clone().requires_grad_(True) for x in xs]
@@ -276,6 +310,37 @@ def test_cuda_bf16_kernel_shapes(B, S, H, KV, D, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [8, 16, 24, 32, 48, 64, 72, 80, 96, 112,
+                               128, 136, 160, 192, 200, 256])
+def test_cuda_head_dims(D, causal, dtype):
+    """On the card: every compiled width, and head dims between them
+    (the next width, its missing columns read as zeros), against the
+    plain version (f32 1e-5 of the largest magnitude; bf16 atol = rtol =
+    3e-2), GQA 6 over 2, S 192 (ragged at 64 keys), one launch each, a
+    repeat launch the same bits, no local memory in the variant."""
+    dev = _cuda_or_skip()
+    _, (tq, tk, tv) = _case(1, 192, 6, 2, D, dtype, D + 1)
+    tq, tk, tv = (x.to(dev) for x in (tq, tk, tv))
+    kw = dict(bq=64, bk=64, causal=causal)
+    before = ops.flash_attention.launches
+    got, again = flash_attention(tq, tk, tv, **kw), flash_attention(
+        tq, tk, tv, **kw)
+    want = flash_attention_plain(tq, tk, tv, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 2
+    assert torch.equal(got, again)
+    if dtype == "float32":
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    else:
+        torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+    info = ops.kernel_info(DTYPES[dtype][1], D, causal)
+    assert info["width"] == ops.width(D, DTYPES[dtype][1])
+    assert info["local_bytes"] == 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_bf16_fused_qkv_views(causal):
     """On the card: q, k and v as strided views of one fused
@@ -300,8 +365,8 @@ def test_cuda_bf16_fused_qkv_views(causal):
 def test_cuda_bf16_inputs_it_cannot_take_raise():
     """On the card: a bf16 view whose start is not 16-byte aligned, or
     whose strides are not multiples of 8 elements, raises before any
-    launch, as does a head dim without a kernel; an aligned view of the
-    same storage runs."""
+    launch, as does a head dim above 256; an aligned view of the same
+    storage runs."""
     dev = _cuda_or_skip()
     base = torch.randn((1, 128, 2, 80), device=dev).to(torch.bfloat16)
     odd = torch.randn((1, 128, 2, 68), device=dev).to(torch.bfloat16)
@@ -309,9 +374,9 @@ def test_cuda_bf16_inputs_it_cannot_take_raise():
     for bad in (base[..., 1:65], odd[..., :64]):
         with pytest.raises(ValueError, match="16 bytes at a time"):
             flash_attention(bad, bad, bad)
-    x48 = base[..., :48]
+    x264 = torch.zeros((1, 128, 2, 264), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
-        flash_attention(x48, x48, x48)
+        flash_attention(x264, x264, x264)
     assert ops.flash_attention.launches == before
     good = base[..., 8:72]
     got = flash_attention(good, good, good)

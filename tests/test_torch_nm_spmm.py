@@ -222,16 +222,61 @@ def test_plan_f32_never_takes_the_tensor_cores(M):
 
 
 def test_plan_raises_where_the_kernel_cannot_go():
-    """N not a multiple of 16 columns (the kernel reads 16 bytes of
-    neighbouring columns) and unknown patterns raise; bf16 with K % 8
-    (A's rows not 16-byte aligned) stays on the narrow path."""
-    with pytest.raises(ValueError, match="multiple of 16"):
-        ops.plan(8, 896, 40, 2, 4, torch.float32)
-    with pytest.raises(ValueError, match="no N:M kernel"):
-        ops.plan(8, 896, 64, 3, 4, torch.float32)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        ops.plan(12, 896, 64, 2, 4, torch.float32)
+    """Patterns outside 1 <= n < m <= 16 raise (m 17 would fit int8
+    offsets, not the kernels); bf16 with K % 8 (A's rows not 16-byte
+    aligned) stays off the tensor cores."""
+    for n, m in ((2, 17), (1, 32), (4, 4), (0, 4)):
+        with pytest.raises(ValueError, match="no N:M kernel"):
+            ops.plan(8, 34 * m, 64, n, m, torch.float32)
     assert ops.plan(128, 12, 64, 2, 6, torch.bfloat16).path == "narrow"
+
+
+@pytest.mark.parametrize("M,K,N,n,m,path", [
+    (8, 896, 40, 2, 4, "narrow"),       # N % 16: rows still 16-byte aligned
+    (8, 896, 64, 3, 4, "general"),      # not a compiled pattern
+    (12, 896, 64, 2, 4, "narrow")])     # M % 8: rows past M predicated
+def test_plan_takes_what_it_once_refused(M, K, N, n, m, path):
+    """Shapes the plan refused before have one now: the path, a grid
+    covering M and N, K-slices covering K/m."""
+    for dtype in (torch.float32, torch.bfloat16):
+        p = ops.plan(M, K, N, n, m, dtype)
+        assert p.path == path and p.kernel in ops.KERNELS
+        assert p.grid[1] * p.tile[0] >= M > (p.grid[1] - 1) * p.tile[0]
+        assert p.grid[2] * p.tile[1] >= N > (p.grid[2] - 1) * p.tile[1]
+        assert (p.split - 1) * p.slice_groups < K // m \
+            <= p.split * p.slice_groups
+
+
+#: shapes the kernels take since they widened, as (M, K, N, n, m): the
+#: JAX package's kernel runs them at its default tiles (bm = min(128, M),
+#: likewise bk and bn): a batch-1 decode at qwen2-0.5b's width, 40
+#: columns, a pattern that is not compiled, 1:2 at 24 columns
+NEW_SHAPES = [(1, 896, 64, 2, 4), (3, 64, 40, 2, 4), (1, 64, 64, 3, 4),
+              (5, 48, 24, 1, 2)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", NEW_SHAPES)
+def test_matches_reference_at_new_shapes(shape, dtype):
+    """The plain version against the JAX package's interpret-mode
+    kernel at its default tiles, with int8 and (where the tiles hold
+    whole bytes) packed offsets; the plan names the path the card runs."""
+    M, K, N, n, m = shape
+    tol = DTYPES[dtype][2]
+    (a, wv, wi, wk), (ta, tv, ti, tk) = _case(n, m, M, K, N, dtype,
+                                              M + K + N, packed=True)
+    want = np.asarray(ref_nm_spmm(a, wv, wi, n=n, m=m))
+    got = nm_spmm(ta, tv, ti, n=n, m=m)
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+    per = 8 // ops.offsets_bits(m)
+    if (min(128, K) // m * n) % per == 0:
+        want = np.asarray(ref_nm_spmm(a, wv, wk, n=n, m=m, packed=True))
+        got = nm_spmm(ta, tv, tk, n=n, m=m, packed=True)
+        np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+    vc = 4 if dtype == "float32" else 8     # values in 16 bytes
+    p = ops.plan(M, K, N, n, m, DTYPES[dtype][1])
+    assert p.path == ("narrow" if (n, m) in NM_PAIRS and N % vc == 0
+                      else "general")
 
 
 def test_plan_split_follows_the_sm_count():
@@ -339,19 +384,74 @@ def test_cuda_ragged_k(M, groups, dtype, packed):
 
 @pytest.mark.gpu
 def test_cuda_columns_not_a_multiple_of_16_raise():
-    """N must be a multiple of 16 columns: through the wrapper no legal
-    bn allows another N (ValueError), and the C interface returns
-    cudaErrorInvalidValue (1) for N = 40 without launching."""
-    a, vals, idx, _ = _card_case(8, 64, 48, 2, 4, torch.float32, 1)
-    with pytest.raises(ValueError):
-        nm_spmm(a, vals, idx, n=2, m=4, bm=8, bk=64, bn=64)
-    out = torch.empty((8, 40), device=a.device)
-    v40 = vals[:, :40].contiguous()
-    i40 = idx[:, :40].contiguous()
+    """The wide path reads offsets 16 columns at a time: its C interface
+    returns cudaErrorInvalidValue (1) for N = 40 without launching, and
+    the plan sends such a bf16 product to the narrow path, which the
+    wrapper launches and which agrees with the plain version."""
+    a, vals, idx, _ = _card_case(64, 64, 40, 2, 4, torch.bfloat16, 1)
+    out = torch.empty((64, 40), device=a.device)
     err = ops.LIBRARY.lib().nm_spmm(
-        a.data_ptr(), v40.data_ptr(), i40.data_ptr(), out.data_ptr(), 8, 64,
-        40, 2, 4, 0, 0, 0, 1, 16, torch.cuda.current_stream().cuda_stream)
+        a.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(), 64,
+        64, 40, 2, 4, 0, 1, 1, 1, 16, torch.cuda.current_stream().cuda_stream)
     assert err == 1
+    assert ops.plan(64, 64, 40, 2, 4, torch.bfloat16).path == "narrow"
+    got = nm_spmm(a, vals, idx, n=2, m=4, bm=8, bk=64, bn=40)
+    want = nm_spmm_plain(a, vals, idx, n=2, m=4, bm=8, bk=64, bn=40)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= CARD_TOL
+
+
+#: the shape classes the kernels take since they widened, on the card:
+#: (M, K, N, n, m, dtype, packed): batch-1 to 7 decodes at qwen2-0.5b's
+#: ffn_gate_up on the narrow path, N not a multiple of 16 (aligned rows:
+#: narrow; unaligned: general), patterns that are not compiled (general,
+#: with int8 and packed offsets, m up to 16), and the JAX package's own
+#: test shapes (tests/test_kernels.py: 32 x 12m x 64 at every compiled
+#: pattern, the 64 x 64 x 64 block sweep, packed 32 x 16m x 64)
+CARD_SHAPES = [
+    (1, 896, 9728, 2, 4, torch.bfloat16, False),
+    (1, 896, 9728, 2, 4, torch.bfloat16, True),
+    (1, 896, 9728, 2, 4, torch.float32, False),
+    (5, 896, 9728, 2, 4, torch.float32, True),
+    (3, 64, 40, 2, 4, torch.float32, False),
+    (3, 64, 40, 2, 4, torch.bfloat16, False),
+    (7, 256, 20, 2, 4, torch.float32, True),
+    (70, 512, 100, 2, 8, torch.bfloat16, False),
+    (1, 64, 64, 3, 4, torch.float32, False),
+    (5, 48, 24, 1, 2, torch.bfloat16, True),
+    (9, 512, 1000, 5, 8, torch.float32, True),
+    (40, 448, 384, 7, 16, torch.bfloat16, True),
+    (128, 1536, 768, 3, 12, torch.bfloat16, False),
+    (32, 72, 64, 2, 6, torch.float32, False),
+    (32, 72, 64, 2, 6, torch.bfloat16, False),
+    (64, 64, 64, 2, 4, torch.float32, False),
+    (32, 128, 64, 2, 8, torch.float32, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_cuda_new_shapes(shape):
+    """On the card: K3 against its plain version (1e-5 of the largest
+    magnitude), one launch a call, a repeat launch the same bits; tiles
+    of the whole shape (the kernel picks its own)."""
+    M, K, N, n, m, dtype, packed = shape
+    a, vals, idx, pk = _card_case(M, K, N, n, m, dtype, M + N + m)
+    offs = pk if packed else idx
+    kw = dict(n=n, m=m, bm=M, bk=K, bn=N, packed=packed)
+    before = nm_spmm.launches
+    got, again = nm_spmm(a, vals, offs, **kw), nm_spmm(a, vals, offs, **kw)
+    want = nm_spmm_plain(a, vals, offs, **kw)
+    torch.cuda.synchronize()
+    assert nm_spmm.launches == before + 2
+    assert _rel_err(got, want) <= CARD_TOL
+    assert torch.equal(got, again)
+    p = ops.plan(M, K, N, n, m, dtype)
+    vc = 16 // a.element_size()
+    if (n, m) not in NM_PAIRS or N % vc:
+        assert p.path == "general"
+        info = ops.kernel_info("general", dtype, n, m, packed)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1
 
 
 @pytest.mark.gpu
