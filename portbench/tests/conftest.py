@@ -1,0 +1,9 @@
+"""The benchmark's own tests: ``python -m pytest -q portbench/tests`` from
+the root of the checkout (CPU; the ``gpu`` cases skip without a card)."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
