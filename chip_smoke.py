@@ -2041,10 +2041,14 @@ def _device_busy(fn, device, detail=None) -> dict:
     of ``fn``, from a ``torch.profiler`` trace, and the device window
     (first device event's start to the last one's end): the idle time
     inside it is gaps between device operations, the rest is the host
-    before and after them.  ``detail(prof)`` adds its dict of figures
-    read from the same trace.  A profiler range's own span on the device
-    timeline (a user annotation) is not device work and is left out."""
+    before and after them.  Busy is the length of the union of the
+    events' intervals: operations on streams that overlap count once.
+    ``detail(prof)`` adds its dict of figures read from the same trace.
+    A profiler range's own span on the device timeline (a user
+    annotation) is not device work and is left out."""
     from torch.profiler import ProfilerActivity, profile
+
+    from portbench.harness.devtrace import union_seconds
     activities = [ProfilerActivity.CPU]
     if device != "cpu":
         activities.append(ProfilerActivity.CUDA)
@@ -2057,7 +2061,8 @@ def _device_busy(fn, device, detail=None) -> dict:
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
-    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+    busy = union_seconds((e.time_range.start, e.time_range.end)
+                         for e in dev) / 1e6
     window = (max(e.time_range.end for e in dev)
               - min(e.time_range.start for e in dev)) / 1e6 if dev else 0.0
     return {"traced_s": traced, "device_busy_s": busy,

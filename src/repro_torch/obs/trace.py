@@ -35,7 +35,8 @@ Tracing is OFF unless enabled in code or via ``REPRO_TRACE``:
 * ``<path>.json`` — in-memory + Chrome trace written there at exit.
 
 The environment is read once at import (``configure_from_env``), so
-``REPRO_TRACE=1 python -m benchmarks.bench_fleet`` needs no code change.
+``REPRO_TRACE=trace.json python -m repro_torch.launch.hillclimb
+--device cpu`` writes a search's spans with no code change.
 """
 from __future__ import annotations
 
@@ -254,20 +255,6 @@ def disable() -> None:
         _TRACER = None
         _JSONL = None
         _CHROME_PATH = None
-
-
-def _swap_state(state=(None, None, None)):
-    """Atomically replace the (tracer, jsonl sink, chrome path) globals,
-    returning the previous triple.  Unlike :func:`disable` this neither
-    flushes the Chrome export nor closes the JSONL sink — it lets the
-    observability benchmarks toggle tracing for their own measurements
-    and then hand the caller's tracer back untouched (open spans keep
-    recording into the tracer they captured at entry)."""
-    global _TRACER, _JSONL, _CHROME_PATH
-    with _LOCK:
-        prev = (_TRACER, _JSONL, _CHROME_PATH)
-        _TRACER, _JSONL, _CHROME_PATH = state
-        return prev
 
 
 def configure_from_env(env=None) -> Tracer | None:

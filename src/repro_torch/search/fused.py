@@ -23,6 +23,13 @@ synchronization, then one device-to-host copy of the chunk's outputs.
 A capture or replay that fails raises: there is no eager fallback on
 the card.  On the CPU (``device="cpu"``) the same step runs eagerly.
 
+Measurement: each capture observes the graph's kernel-node count on the
+always-on histogram ``fused.graph_kernels``; with tracing on
+(``obs.enable()`` / ``REPRO_TRACE``) each chunk's ``engine.eval`` span
+carries ``device_s``, the replays' time on the device's own clock (two
+CUDA events around them, read after the chunk's readback), and
+``generations``.
+
 Randomness is counter-based: every draw is a hash of (seed, generation
 index, draw stream, element index), computed with 32-bit integer
 arithmetic in int64 tensors, so it lives on the device, is safe to
@@ -49,6 +56,7 @@ re-validated through the scalar oracle, as host winners are.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 import time
 
@@ -98,6 +106,36 @@ def _mix32(x):
     x = x ^ (x >> 15)
     x = _mul32(x, 0x846CA68B)
     return x ^ (x >> 16)
+
+
+def _kernel_nodes(raw_graph: int) -> int | None:
+    """Kernel nodes of a captured ``cudaGraph_t``, counted through the
+    CUDA runtime library this process has loaded; None where none is
+    loaded or a call fails."""
+    with open("/proc/self/maps") as maps:
+        lib = next((line.split()[-1] for line in maps
+                    if "/libcudart.so" in line), None)
+    if lib is None:
+        return None
+    runtime = ctypes.CDLL(lib)
+    nodes_of = runtime.cudaGraphGetNodes
+    type_of = runtime.cudaGraphNodeGetType
+    nodes_of.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.POINTER(ctypes.c_size_t)]
+    type_of.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    nodes_of.restype = type_of.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    if nodes_of(raw_graph, None, ctypes.byref(n)):
+        return None
+    nodes = (ctypes.c_void_p * n.value)()
+    if nodes_of(raw_graph, nodes, ctypes.byref(n)):
+        return None
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes[:n.value]:
+        if type_of(node, ctypes.byref(kind)):
+            return None
+        kernels += kind.value == 0      # cudaGraphNodeTypeKernel
+    return kernels
 
 
 def fused_supported(enc: MapspaceEncoding) -> bool:
@@ -211,6 +249,8 @@ class FusedProgram:
         self._state: dict | None = None
         self._wp: tuple | None = None
         self._graph = None
+        #: the two timing events around a chunk's replays (traced runs)
+        self._events: tuple | None = None
 
         dev = self.device
         P, G = self.pop_size, enc.genome_size
@@ -589,9 +629,15 @@ class FusedProgram:
                 self._step(st, wp)
             torch.cuda.current_stream(self.device).wait_stream(side)
             self._load(st, carry)
-            graph = torch.cuda.CUDAGraph()
+            # keep the cudaGraph_t to count its kernels, then
+            # instantiate, so that the first replay pays nothing new
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(graph):
                 self._step(st, wp)
+            kernels = _kernel_nodes(graph.raw_cuda_graph())
+            graph.instantiate()
+            if kernels is not None:
+                obs.metrics.histogram("fused.graph_kernels").observe(kernels)
             self._graph = graph
             self.captures += 1
         return self._graph
@@ -648,7 +694,9 @@ class FusedProgram:
         device-to-host copy at the end; on the CPU the step runs
         eagerly.  The first sighting of a (device, pop, genome) shape is
         an ``engine.compile`` span and ``compile_seconds`` (the warm-up
-        and capture), later chunks ``engine.eval``."""
+        and capture), later chunks ``engine.eval``.  With tracing on, on
+        the card, the span's ``device_s`` is the replays' device time,
+        from two CUDA events read after the readback synchronised."""
         length = int(length)
         if length < 1:
             raise ValueError(f"chunk length must be >= 1, got {length}")
@@ -662,24 +710,37 @@ class FusedProgram:
             t0 = time.perf_counter()
             with obs.span(name, kind="fused",
                           workload=self.bm.workload.name,
-                          candidates=length * P, shape=shape_key), \
+                          candidates=length * P, shape=shape_key,
+                          generations=length) as sp, \
                     torch.no_grad():
                 wp = self._bind()
                 st = self._static(carry, length)
                 self._load(st, carry)
                 cuda = st["ys"].is_cuda
                 graph = self._captured(st, carry, wp) if cuda else None
+                timed = cuda and obs.enabled()
+                if timed:
+                    stream = torch.cuda.current_stream(self.device)
+                    if self._events is None:
+                        self._events = (torch.cuda.Event(enable_timing=True),
+                                        torch.cuda.Event(enable_timing=True))
+                    self._events[0].record(stream)
                 for _ in range(length):
                     if cuda:
                         graph.replay()
                     else:
                         self._step(st, wp)
+                if timed:
+                    self._events[1].record(stream)
                 new = tuple(st[n].clone() for n in _CARRY[:len(carry)])
                 host = [st["ys"][:length].reshape(-1)]
                 if self.archive_k:
                     host += [st["afit"], st["agen"].reshape(-1)
                              .to(torch.float64)]
                 host = torch.cat(host).cpu().numpy()
+                if timed:
+                    sp.set(device_s=self._events[0].elapsed_time(
+                        self._events[1]) / 1e3)
             dt = time.perf_counter() - t0
             if is_new:
                 compile_stats.record_compile_seconds(dt)

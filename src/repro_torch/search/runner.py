@@ -61,6 +61,13 @@ Two other routes: ``fused=True`` runs an eligible ES device-resident
 a chunk of generations, on one device), and ``service=`` sends every
 batched evaluation through a ``repro_torch.dse`` evaluation service,
 which owns the mesh.
+
+Spans (``repro_torch.obs``): ``search.run`` covers a whole call, with
+the children ``search.prepare`` (strategy, encoding, evaluator and, on
+the fused path, program and initial carry), one ``search.generation``
+(host loop) or ``search.chunk`` (fused, with ``search.fold`` for the
+host's fold of the chunk) at a time, and ``search.validate`` (the
+scalar-oracle walk).
 """
 from __future__ import annotations
 
@@ -458,14 +465,11 @@ def _run_host(evaluate: PopulationEvaluator, enc, strat, key,
     return archive_fit, archive_gen, n_eval, n_valid
 
 
-def _run_fused(evaluate: PopulationEvaluator, enc, strat, key,
-               generations: int, metric: str, check_capacity: bool,
-               config: SearchConfig, service, sgd_lr: float,
-               sgd_tau: float, log: SearchLog):
-    """The device-resident path: generation chunks run as graph replays
-    (``search.fused``); the host only absorbs each chunk's outputs.
-    Returns the same state as :func:`_run_host` plus the chunk-timing
-    rows for ``log.timing``."""
+def _fused_setup(evaluate: PopulationEvaluator, enc, strat, key,
+                 metric: str, check_capacity: bool, sgd_lr: float,
+                 sgd_tau: float) -> tuple:
+    """The device-resident path's program, initial carry and host fold
+    (``search.fused``)."""
     from .fused import ChunkAbsorber, get_fused_program
 
     bm = evaluate.model.bucketed_model(
@@ -476,22 +480,30 @@ def _run_fused(evaluate: PopulationEvaluator, enc, strat, key,
     fp = get_fused_program(bm, enc, strat, metric=metric,
                            sgd_lr=sgd_lr, sgd_tau=sgd_tau,
                            archive_k=ARCHIVE_SIZE)
-    carry = fp.init_carry(key)
-    absorber = ChunkAbsorber(metric, ARCHIVE_SIZE,
-                             pop_size=strat.pop_size)
+    return fp, fp.init_carry(key), ChunkAbsorber(
+        metric, ARCHIVE_SIZE, pop_size=strat.pop_size)
+
+
+def _run_fused(fp, carry, absorber, pop_size: int, generations: int,
+               config: SearchConfig, service, log: SearchLog):
+    """The device-resident path: generation chunks run as graph replays
+    (``search.fused``); the host only absorbs each chunk's outputs.
+    Returns the same state as :func:`_run_host` plus the chunk-timing
+    rows for ``log.timing``."""
     chunks: list[dict] = []
     done = 0
     while done < generations:
         c = min(max(1, config.fused_chunk), generations - done)
         t0 = time.perf_counter()
         with obs.span("search.chunk", start=done, length=c,
-                      pop_size=strat.pop_size) as sp:
+                      pop_size=pop_size) as sp:
             if service is not None:
                 carry, ys = service.run_fused(
                     lambda carry=carry, c=c: fp.invoke_chunk(carry, c))
             else:
                 carry, ys = fp.invoke_chunk(carry, c)
-            absorber.absorb(ys, log)
+            with obs.span("search.fold"):
+                absorber.absorb(ys, log)
             sp.set(evaluations=absorber.n_eval,
                    best_fitness=absorber.best["fitness"])
         chunks.append({"start": done, "generations": c,
@@ -586,113 +598,123 @@ def run_search(design, workload: Workload,
     """
     if metric not in METRICS:
         raise ValueError(f"metric must be one of {METRICS}, got {metric!r}")
-    if service is not None:
-        mesh = None        # the service owns the devices
-    elif isinstance(mesh, str):
-        if mesh != "auto":
-            raise ValueError(f"mesh must be a PopulationMesh, None or "
-                             f"'auto', got {mesh!r}")
-        mesh = auto_mesh(device)
-    if mesh is not None and device is None:
-        device = mesh.devices[0]
-    config = config or SearchConfig()
-    if batch_threshold is not None:
-        config = dataclasses.replace(config,
-                                     batch_threshold=batch_threshold)
-    cons = cons or MapspaceConstraints()
-    strat = make_strategy(strategy, **strategy_options)
-    if topology_space is not None:
-        if design is not None:
-            raise ValueError(
-                "topology co-search decodes designs from the "
-                "TopologySpace genome; pass design=None (the base "
-                "levels live in the space's slots)")
-        enc: MapspaceEncoding = TopologyCoSearchEncoding(
-            workload, cons, topology_space, design_space)
-        design = enc.representative_design()
-    elif design_space is not None:
-        enc = CoSearchEncoding(
-            workload, design.arch.num_levels, cons, design_space, design)
-    else:
-        enc = MapspaceEncoding(workload, design.arch.num_levels, cons)
-    evaluate = PopulationEvaluator(design, workload, enc, mesh=mesh,
-                                   check_capacity=check_capacity,
-                                   config=config, device=device,
-                                   service=service)
+    with obs.span("search.run", metric=metric,
+                  workload=workload.name) as run_span:
+        with obs.span("search.prepare"):
+            if service is not None:
+                mesh = None        # the service owns the devices
+            elif isinstance(mesh, str):
+                if mesh != "auto":
+                    raise ValueError(f"mesh must be a PopulationMesh, None "
+                                     f"or 'auto', got {mesh!r}")
+                mesh = auto_mesh(device)
+            if mesh is not None and device is None:
+                device = mesh.devices[0]
+            config = config or SearchConfig()
+            if batch_threshold is not None:
+                config = dataclasses.replace(
+                    config, batch_threshold=batch_threshold)
+            cons = cons or MapspaceConstraints()
+            strat = make_strategy(strategy, **strategy_options)
+            if topology_space is not None:
+                if design is not None:
+                    raise ValueError(
+                        "topology co-search decodes designs from the "
+                        "TopologySpace genome; pass design=None (the base "
+                        "levels live in the space's slots)")
+                enc: MapspaceEncoding = TopologyCoSearchEncoding(
+                    workload, cons, topology_space, design_space)
+                design = enc.representative_design()
+            elif design_space is not None:
+                enc = CoSearchEncoding(workload, design.arch.num_levels,
+                                       cons, design_space, design)
+            else:
+                enc = MapspaceEncoding(workload, design.arch.num_levels,
+                                       cons)
+            evaluate = PopulationEvaluator(
+                design, workload, enc, mesh=mesh,
+                check_capacity=check_capacity, config=config,
+                device=device, service=service)
 
-    seed = int(key) if isinstance(key, (int, np.integer)) else None
-    key = generator(key)
-    if generations is None:
-        # honour cons.budget as a hard cap: shrink the population when
-        # it exceeds the whole budget, then spend it in full generations
-        if strat.pop_size > cons.budget > 0:
-            strat = make_strategy(strat, pop_size=cons.budget)
-        generations = max(1, cons.budget // max(1, strat.pop_size))
+            seed = int(key) if isinstance(key, (int, np.integer)) else None
+            key = generator(key)
+            if generations is None:
+                # honour cons.budget as a hard cap: shrink the population
+                # when it exceeds the whole budget, then spend it in full
+                # generations
+                if strat.pop_size > cons.budget > 0:
+                    strat = make_strategy(strat, pop_size=cons.budget)
+                generations = max(1, cons.budget // max(1, strat.pop_size))
 
-    from .fused import fused_supported
-    want_fused = config.fused if fused is None else fused
-    use_fused = (want_fused and isinstance(strat, EvolutionStrategy)
-                 and evaluate.batched and config.bucketed
-                 and enc.genome_size > 0
-                 and strat.pop_size >= max(1, config.batch_threshold)
-                 and fused_supported(enc))
-    if fused and not use_fused:
-        warnings.warn(
-            "fused=True requested but this run is not fused-eligible "
-            "(needs an EvolutionStrategy on the bucketed batched path "
-            "with device-decoded design knobs); using the host loop",
-            stacklevel=2)
+            from .fused import fused_supported
+            want_fused = config.fused if fused is None else fused
+            use_fused = (want_fused
+                         and isinstance(strat, EvolutionStrategy)
+                         and evaluate.batched and config.bucketed
+                         and enc.genome_size > 0
+                         and strat.pop_size >= max(1,
+                                                   config.batch_threshold)
+                         and fused_supported(enc))
+            if fused and not use_fused:
+                warnings.warn(
+                    "fused=True requested but this run is not "
+                    "fused-eligible (needs an EvolutionStrategy on the "
+                    "bucketed batched path with device-decoded design "
+                    "knobs); using the host loop", stacklevel=2)
 
-    log = log_to or SearchLog(strategy=strat.name, metric=metric,
-                              workload=workload.name,
-                              design=design.name or design.arch.name,
-                              seed=seed)
+            log = log_to or SearchLog(
+                strategy=strat.name, metric=metric, workload=workload.name,
+                design=design.name or design.arch.name, seed=seed)
 
-    t_run0 = time.perf_counter()
-    with compile_stats.track() as st, \
-            obs.span("search.run", strategy=strat.name, metric=metric,
-                     workload=workload.name, generations=generations,
-                     pop_size=strat.pop_size, fused=use_fused):
+            t_run0 = time.perf_counter()
+            if use_fused:
+                fused_state = _fused_setup(
+                    evaluate, enc, strat, key if seed is None else seed,
+                    metric, check_capacity, sgd_lr, sgd_tau)
+        run_span.set(strategy=strat.name, generations=generations,
+                     pop_size=strat.pop_size, fused=use_fused)
+        with compile_stats.track() as st:
+            if use_fused:
+                archive_fit, archive_gen, n_eval, n_valid, chunks = \
+                    _run_fused(*fused_state, strat.pop_size, generations,
+                               config, service, log)
+            else:
+                archive_fit, archive_gen, n_eval, n_valid = _run_host(
+                    evaluate, enc, strat, key, generations, metric, log)
+        # run-level wall-clock attribution: where the search's seconds
+        # went (first-call vs warm evaluation, from compile_stats'
+        # counters)
+        log.timing = {
+            "wall_s": time.perf_counter() - t_run0,
+            "compile_s": st.compile_seconds,
+            "eval_s": st.eval_seconds,
+            "compiles": st.compiles,
+        }
         if use_fused:
-            archive_fit, archive_gen, n_eval, n_valid, chunks = \
-                _run_fused(evaluate, enc, strat,
-                           key if seed is None else seed, generations,
-                           metric, check_capacity, config, service,
-                           sgd_lr, sgd_tau, log)
-        else:
-            archive_fit, archive_gen, n_eval, n_valid = _run_host(
-                evaluate, enc, strat, key, generations, metric, log)
-    # run-level wall-clock attribution: where the search's seconds went
-    # (first-call vs warm evaluation, from compile_stats' counters)
-    log.timing = {
-        "wall_s": time.perf_counter() - t_run0,
-        "compile_s": st.compile_seconds,
-        "eval_s": st.eval_seconds,
-        "compiles": st.compiles,
-    }
-    if use_fused:
-        # chunk-level attribution: per-generation wall_time_s is None
-        # inside a chunk of replays, the measurable unit is the chunk
-        log.timing["fused"] = True
-        log.timing["chunks"] = chunks
+            # chunk-level attribution: per-generation wall_time_s is None
+            # inside a chunk of replays, the measurable unit is the chunk
+            log.timing["fused"] = True
+            log.timing["chunks"] = chunks
 
-    # scalar-oracle validation of the winner (best-first archive walk);
-    # co-search candidates validate under THEIR OWN design, and the
-    # winner's design rides out on the result
-    order = np.argsort(archive_fit, kind="stable")[:ARCHIVE_SIZE]
-    model_at = None
-    if design_space is not None or topology_space is not None:
-        # reuse the evaluator's per-design oracle cache: archive rows
-        # repeat a handful of (topology, design) points, and each
-        # candidate validates under its OWN decoded Design
-        model_at = (lambda i:
-                    evaluate._scalar_model(archive_gen[order[i]]))
-    result = _validated_result(
-        evaluate.model, workload,
-        lambda i: enc.nest_of(archive_gen[order[i]]),
-        edp=np.asarray([archive_fit[k] for k in order]),
-        valid=np.ones(len(order), dtype=bool),
-        n_eval=n_eval, check_capacity=check_capacity, model_at=model_at)
+        with obs.span("search.validate"):
+            # scalar-oracle validation of the winner (best-first archive
+            # walk); co-search candidates validate under THEIR OWN design,
+            # and the winner's design rides out on the result
+            order = np.argsort(archive_fit, kind="stable")[:ARCHIVE_SIZE]
+            model_at = None
+            if design_space is not None or topology_space is not None:
+                # reuse the evaluator's per-design oracle cache: archive
+                # rows repeat a handful of (topology, design) points, and
+                # each candidate validates under its OWN decoded Design
+                model_at = (lambda i:
+                            evaluate._scalar_model(archive_gen[order[i]]))
+            result = _validated_result(
+                evaluate.model, workload,
+                lambda i: enc.nest_of(archive_gen[order[i]]),
+                edp=np.asarray([archive_fit[k] for k in order]),
+                valid=np.ones(len(order), dtype=bool),
+                n_eval=n_eval, check_capacity=check_capacity,
+                model_at=model_at)
     result.valid = n_valid
     result.log = log
     return result
