@@ -94,6 +94,9 @@ from .workload import TensorSpec, Workload
 
 WORD_BITS = 16.0  # metadata accounting word width (matches sparse.py)
 F64 = torch.float64
+#: rank formats that hold every coordinate of a fiber, so their
+#: occupancy needs no density statistic
+_OCCUPANCY_FREE = (RankFormat.U, RankFormat.UB)
 
 
 class BatchedUnsupported(NotImplementedError):
@@ -501,6 +504,63 @@ def _merge_b(dst: dict, leader: str, p) -> None:
     dst[leader] = _max(dst.get(leader, 0.0), p)
 
 
+class _DensityQueries:
+    """The density-statistic queries of one program run, answered in
+    batches.
+
+    Every query is asked (:meth:`ask`) before any is answered: one
+    statistic of one tensor at one tile, under a static key that
+    describes the tile (a Python-number tile is keyed by its value), so
+    a query that repeats is asked once.  :meth:`solve` stacks each
+    (tensor, statistic)'s tiles along a trailing axis into one (C, Q)
+    tensor and evaluates the statistic once on it; :meth:`answer` reads
+    a query's column.  The statistics are elementwise in the tile, so a
+    column holds what the query alone would have given, and a run
+    launches one statistics chain per (tensor, statistic) instead of
+    one per query."""
+
+    def __init__(self):
+        self._tiles: dict = {}      # (tensor, stat) -> {key: tile}
+        self._cols: dict = {}       # (tensor, stat, key) -> (C,) answer
+        self.answered = 0
+        self.evals = 0
+
+    @staticmethod
+    def _key(key, tile):
+        return key if isinstance(tile, torch.Tensor) else float(tile)
+
+    def ask(self, stat: str, tname: str, key, tile) -> None:
+        self._tiles.setdefault((tname, stat), {}).setdefault(
+            self._key(key, tile), tile)
+
+    def solve(self, evaluate, const_row, C: int) -> None:
+        """``evaluate(stat, tname, tiles)`` answers a (C, Q) stack;
+        ``const_row(values)`` is a cached (Q,) tensor of Python-number
+        tiles, so the numbers join the tensor tiles without a fill
+        apiece."""
+        for (tname, stat), tiles in self._tiles.items():
+            held = [(k, t) for k, t in tiles.items()
+                    if isinstance(t, torch.Tensor)]
+            const = [(k, t) for k, t in tiles.items()
+                     if not isinstance(t, torch.Tensor)]
+            parts = []
+            if held:
+                parts.append(torch.stack([t.expand(C) for _, t in held],
+                                         -1))
+            if const:
+                parts.append(const_row(tuple(float(t) for _, t in const))
+                             .expand(C, len(const)))
+            stack = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+            out = evaluate(stat, tname, stack)
+            self.evals += 1
+            for (key, _), col in zip(held + const, out.unbind(-1)):
+                self._cols[(tname, stat, key)] = col
+
+    def answer(self, stat: str, tname: str, key, tile):
+        self.answered += 1
+        return self._cols[(tname, stat, self._key(key, tile))]
+
+
 @dataclasses.dataclass
 class _Breakdown:
     actual: object = 0.0
@@ -855,20 +915,13 @@ class _TracedNestModel:
                                lambda: torch.as_tensor(
                                    js, dtype=torch.int64, device=dev))
 
-        def d_pe(name, tile):
-            i = tidx[name]
-            return stats.prob_empty(mids[i], dparams[i], hists[i], tile,
-                                    kinds=(kinds[i],))
+        stat_fns = {"pe": stats.prob_empty, "ed": stats.expected_density,
+                    "mx": stats.max_nnz}
 
-        def d_ed(name, tile):
+        def density(stat, name, tiles):
             i = tidx[name]
-            return stats.expected_density(mids[i], dparams[i], hists[i],
-                                          tile, kinds=(kinds[i],))
-
-        def d_mx(name, tile):
-            i = tidx[name]
-            return stats.max_nnz(mids[i], dparams[i], hists[i], tile,
-                                 kinds=(kinds[i],))
+            return stat_fns[stat](mids[i], dparams[i], hists[i], tiles,
+                                  kinds=(kinds[i],))
 
         def total_size(t: TensorSpec):
             """``t.size(rank_bounds)`` from the bounds vector."""
@@ -1011,11 +1064,87 @@ class _TracedNestModel:
                     1.0).prod(-2)
             return bounds
 
-        def leader_prob(follower: TensorSpec, level_idx, lname: str):
-            leader = wl.tensor(lname)
-            bounds = leader_window_bounds(level_idx, rel_of[follower.name])
-            tile = _max(1.0, tile_size(leader, bounds))
-            return d_pe(lname, tile)
+        # ---- the density queries: every tile a statistic is asked at,
+        # made before any answer is used, then one evaluation per
+        # (tensor, statistic) ----
+        made: dict = {}
+
+        def once(key, make):
+            if key not in made:
+                made[key] = make()
+            return made[key]
+
+        rel_key = {name: tuple(bool(x) for x in v)
+                   for name, v in self._rel.items()}
+
+        def window_dims(lname: str, level, fname: str):
+            """The leader's tile dims in its intersection window at
+            ``level`` for follower ``fname``, and the window's key: one
+            window per (level, follower relevance)."""
+            key = ("window", level, rel_key[fname])
+            bounds = once(key, lambda: leader_window_bounds(
+                level, rel_of[fname]))
+            return key, once((lname,) + key, lambda: tile_dims(
+                wl.tensor(lname), bounds))
+
+        def leader_tile(lname: str, level, fname: str):
+            """A SAF leader's emptiness tile: its window, at least one
+            element."""
+            key, dims = window_dims(lname, level, fname)
+            return key, once((lname, "tile") + key,
+                             lambda: _max(1.0, _prod(dims)))
+
+        def fmt_tiles(fmt, src, dims, tname: str):
+            """Tile ``dims`` (keyed ``src``) in ``fmt``'s ranks: the rank
+            dims, the tile size and each rank's payload (at least one
+            element)."""
+            def make(dims=dims):
+                dims = list(dims) or [1.0]
+                nfr = len(fmt.rank_formats)
+                if len(dims) < nfr:
+                    dims = [1.0] * (nfr - len(dims)) + dims
+                elif len(dims) > nfr:
+                    head = _prod(dims[: len(dims) - nfr + 1])
+                    dims = [head] + dims[len(dims) - nfr + 1:]
+                payload = [_max(1.0, _prod(dims[i + 1:]))
+                           for i in range(len(dims))]
+                return dims, _prod(dims), payload
+            return once((tname, "fmt") + src, make)
+
+        def ask_fmt(fmt, src, dims, tname: str) -> None:
+            _, tsize, payload = fmt_tiles(fmt, src, dims, tname)
+            for i, (rf, sz) in enumerate(zip(fmt.rank_formats, payload)):
+                if rf not in _OCCUPANCY_FREE:
+                    dq.ask("pe", tname, src + (i,), sz)
+                    dq.ask("mx", tname, src, tsize)
+            if fmt.compressed:
+                dq.ask("ed", tname, src, tsize)
+                dq.ask("mx", tname, src, tsize)
+
+        dq = _DensityQueries()
+        for saf in expanded:
+            for lname in saf.leaders:
+                if saf.level == "compute":
+                    dq.ask("ed", lname, None, 1.0)
+                    continue
+                lvl = self.level_names.index(saf.level)
+                dq.ask("pe", lname, *leader_tile(lname, lvl, saf.follower))
+                ask_fmt(self.safs.format_for(saf.level, lname),
+                        *window_dims(lname, lvl, saf.follower), lname)
+                if saf.follower == zname:
+                    for s in range(S):
+                        dq.ask("pe", lname, *leader_tile(lname, s + 1,
+                                                         zname))
+        for t in wl.tensors:
+            for s in range(S):
+                ask_fmt(self.safs.format_for(self.level_names[s], t.name),
+                        ("resident", s), dense[(t.name, s)]["tile_dims"],
+                        t.name)
+        dq.solve(density,
+                 lambda vals: self._const(dev, ("tiles", vals),
+                                          lambda: torch.tensor(
+                                              vals, dtype=F64, device=dev)),
+                 C)
 
         skip_ev: dict[tuple[str, int], dict] = {}
         gate_ev: dict[tuple[str, int], dict] = {}
@@ -1025,16 +1154,16 @@ class _TracedNestModel:
         for saf in expanded:
             if saf.level == "compute":
                 for lname in saf.leaders:
-                    p = 1.0 - d_ed(lname, 1.0)
+                    p = 1.0 - dq.answer("ed", lname, None, 1.0)
                     dst = (comp_skip_ev if saf.kind == SAFKind.SKIP
                            else comp_gate_ev)
                     _merge_b(dst, lname, p)
                 continue
             lvl = self.level_names.index(saf.level)
             key = (saf.follower, lvl)
-            follower = wl.tensor(saf.follower)
             for lname in saf.leaders:
-                p = leader_prob(follower, lvl, lname)
+                p = dq.answer("pe", lname,
+                              *leader_tile(lname, lvl, saf.follower))
                 dst = skip_ev if saf.kind == SAFKind.SKIP else gate_ev
                 dst.setdefault(key, {})
                 _merge_b(dst[key], lname, p)
@@ -1056,10 +1185,8 @@ class _TracedNestModel:
                 if saf.follower != zname or saf.level == "compute":
                     continue
                 for lname in saf.leaders:
-                    leader = wl.tensor(lname)
-                    bounds = leader_window_bounds(s + 1, rel_of[zname])
-                    tile = _max(1.0, tile_size(leader, bounds))
-                    p = d_pe(lname, tile)
+                    p = dq.answer("pe", lname,
+                                  *leader_tile(lname, s + 1, zname))
                     dst = r_skip if saf.kind == SAFKind.SKIP else r_gate
                     _merge_b(dst, lname, p)
             sk = _union_b(r_skip)
@@ -1097,16 +1224,8 @@ class _TracedNestModel:
         c_act = _max(0.0, 1.0 - c_skip - c_gate)
 
         # ---- format analyzer (formats.analyze_tile_format, batched) ----
-        def fmt_stats(fmt, dims, tname: str):
-            dims = list(dims) or [1.0]
-            nfr = len(fmt.rank_formats)
-            if len(dims) < nfr:
-                dims = [1.0] * (nfr - len(dims)) + dims
-            elif len(dims) > nfr:
-                head = _prod(dims[: len(dims) - nfr + 1])
-                dims = [head] + dims[len(dims) - nfr + 1:]
-            tsize = _prod(dims)
-            payload = [_prod(dims[i + 1:]) for i in range(len(dims))]
+        def fmt_stats(fmt, src, dims, tname: str):
+            dims, tsize, payload = fmt_tiles(fmt, src, dims, tname)
 
             meta_avg = meta_max = 0.0
             fibers_avg, fibers_max = 1.0, 1.0
@@ -1114,22 +1233,24 @@ class _TracedNestModel:
                     zip(fmt.rank_formats, dims, payload)):
                 coords_avg = fibers_avg * d
                 coords_max = fibers_max * d
-                p_ne = 1.0 - d_pe(tname, _max(1.0, sz))
-                n_blocks = _prod(dims[: i + 1])
-                occ_avg = _min(coords_avg, n_blocks * p_ne)
-                occ_max = _max(0.0, _min(
-                    coords_max,
-                    torch.ceil(d_mx(tname, tsize) / _max(1.0, sz))))
+                if rf in _OCCUPANCY_FREE:
+                    # every coordinate is held: no density statistic
+                    occ_avg, occ_max = coords_avg, coords_max
+                else:
+                    p_ne = 1.0 - dq.answer("pe", tname, src + (i,), sz)
+                    n_blocks = _prod(dims[: i + 1])
+                    occ_avg = _min(coords_avg, n_blocks * p_ne)
+                    occ_max = _max(0.0, _min(
+                        coords_max,
+                        torch.ceil(dq.answer("mx", tname, src, tsize)
+                                   / sz)))
 
                 cb = float(fmt.coord_bits)
                 if rf == RankFormat.U:
                     bits_avg = bits_max = 0.0
-                    occ_avg, occ_max = coords_avg, coords_max
                 elif rf in (RankFormat.B, RankFormat.UB):
                     bits_avg = fibers_avg * d
                     bits_max = fibers_max * d
-                    if rf == RankFormat.UB:
-                        occ_avg, occ_max = coords_avg, coords_max
                 elif rf in (RankFormat.CP, RankFormat.RLE):
                     bits_avg = occ_avg * cb
                     bits_max = occ_max * cb
@@ -1145,8 +1266,10 @@ class _TracedNestModel:
             if fmt.is_uncompressed:
                 data_avg = data_max = tsize * 1.0
             else:
-                data_avg = _min(tsize * 1.0, d_ed(tname, tsize) * tsize)
-                data_max = _min(tsize * 1.0, d_mx(tname, tsize))
+                data_avg = _min(tsize * 1.0,
+                                dq.answer("ed", tname, src, tsize) * tsize)
+                data_max = _min(tsize * 1.0,
+                                dq.answer("mx", tname, src, tsize))
             return dict(meta_avg=meta_avg, meta_max=meta_max,
                         data_avg=data_avg, data_max=data_max,
                         tile_size=tsize)
@@ -1158,7 +1281,8 @@ class _TracedNestModel:
             for s in range(S):
                 tl = dense[(t.name, s)]
                 fmt = self.safs.format_for(self.level_names[s], t.name)
-                fs = fmt_stats(fmt, tl["tile_dims"], t.name)
+                fs = fmt_stats(fmt, ("resident", s), tl["tile_dims"],
+                               t.name)
 
                 live = live_frac[(t.name, s)]
                 g_above = gated_from_above[(t.name, s)]
@@ -1236,16 +1360,18 @@ class _TracedNestModel:
             follower = wl.tensor(saf.follower)
             rounds = dense[(saf.follower, lvl)]["read_rounds"]
             for lname in saf.leaders:
-                leader = wl.tensor(lname)
-                bounds = leader_window_bounds(lvl, rel_of[follower.name])
-                ldims = tile_dims(leader, bounds)
                 lfmt = self.safs.format_for(self.level_names[lvl], lname)
-                ls = fmt_stats(lfmt, ldims, lname)
+                ls = fmt_stats(lfmt, *window_dims(lname, lvl, follower.name),
+                               lname)
                 bits = _where(ls["meta_avg"] > 0, ls["meta_avg"],
                               ls["tile_size"] * 1.0)
                 sparse[(saf.follower, lvl)]["meta_reads"] = (
                     sparse[(saf.follower, lvl)]["meta_reads"]
                     + rounds * bits / WORD_BITS)
+
+        obs.metrics.histogram("engine.density_queries").observe(
+            dq.answered)
+        obs.metrics.histogram("engine.density_evals").observe(dq.evals)
 
         compute_actual = dense_computes * c_act
         compute_gated = dense_computes * c_gate

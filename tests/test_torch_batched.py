@@ -7,7 +7,9 @@ reproduce ``repro.core.engine.Sparseloop.evaluate`` to <= 1e-6 relative
 on the cases of ``tests/test_batched.py`` and ``tests/test_bucketed.py``
 (CPU, ``device="cpu"``).  The scalar oracle is the reference here: it is
 what the JAX batched engine was itself held to.  Mixed-permutation
-populations are drawn with numpy."""
+populations are drawn with numpy.  One run's density queries go through
+one statistics chain per (tensor, statistic), counted by dispatched ops
+and by the ``engine.density_*`` histograms."""
 import numpy as np
 import pytest
 
@@ -432,3 +434,85 @@ def test_stochastic_strategies_wait_for_the_search_port():
             num_levels=res.best_nest.num_levels))
     assert oracle.result.valid
     assert res.best.edp == pytest.approx(oracle.edp, rel=1e-9)
+
+
+# ----------------------------------------------------------------------
+# the density queries of one run, answered in batches
+# ----------------------------------------------------------------------
+def _scnn_step(pop=64):
+    """An SCNN-style bucket program (B-UOP-RLE operands, skipping at the
+    spads, gated compute) with two uniform operands, and one
+    ``traced_single`` call's device arguments for ``pop`` candidates."""
+    from repro.core.presets import scnn_like, three_level_arch
+    from repro_torch.core.batched import lower_nests
+    ref_design = scnn_like(three_level_arch("scnn", glb_kwords=64,
+                                            spad_words=1024, pes=64))
+    design = from_reference(ref_design)
+    ref_wl = ref_matmul(64, 64, 64, densities={"A": ("uniform", 0.4),
+                                               "B": ("uniform", 0.55)})
+    wl = from_reference(ref_wl)
+    nests = [from_reference(n) for n in _population(
+        ref_wl, 3, pop, seed=4, spatial={1: {"n": 4}})]
+    groups = group_by_bucket(nests, tuple(wl.rank_bounds))
+    bucket, idxs = max(groups.items(), key=lambda kv: len(kv[1]))
+    bounds, ids, _ = lower_nests(bucket, nests, idxs)
+    bm = get_bucketed_model(design, wl, bucket, device=CPU)
+    n = len(bounds)
+    (b, rank_ids), rows = bm._upload([bounds, ids], bm._bind_arch(None, n), n)
+    return bm, (b, rank_ids, bm._bind_params(None), rows)
+
+
+def test_density_statistics_dispatch_few_ops_a_run():
+    """One ``traced_single`` call answers its ~48 density queries with one
+    statistics chain per (tensor, statistic): ``core/density.py``
+    dispatches at most 150 aten ops (958 when each query ran its own
+    chain)."""
+    import sys
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.density = self.total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                self.total += 1
+                f = sys._getframe(1)
+                while f is not None and "repro_torch" not in \
+                        f.f_code.co_filename:
+                    f = f.f_back
+                if f is not None and f.f_code.co_filename.replace(
+                        "\\", "/").endswith("core/density.py"):
+                    self.density += 1
+            return out
+
+    bm, args = _scnn_step(pop=64)
+    with torch.no_grad(), Count() as c:
+        out = bm.traced_single(*args)
+    assert out["cycles"].shape == (len(args[0]),)
+    assert 0 < c.density <= 150, (c.density, c.total)
+
+
+def test_density_queries_and_evaluations_are_observed():
+    """Each run observes the queries it answered and the statistics
+    evaluations it made: more queries than evaluations, and at most one
+    evaluation per (tensor, statistic)."""
+    from repro_torch import obs
+
+    def totals():
+        snap = obs.metrics.snapshot()
+        return [(snap.get(k, {}).get("count", 0),
+                 snap.get(k, {}).get("sum", 0.0))
+                for k in ("engine.density_queries", "engine.density_evals")]
+
+    bm, args = _scnn_step(pop=16)
+    before = totals()
+    with torch.no_grad():
+        bm.traced_single(*args)
+    (qc, qs), (ec, es) = [(c1 - c0, s1 - s0) for (c0, s0), (c1, s1)
+                          in zip(before, totals())]
+    assert qc == ec == 1
+    assert 0 < es <= 3 * len(bm.workload.tensors)
+    assert qs / es > 1

@@ -7,7 +7,9 @@ models.
 ``repro.core.density`` at every tile size — non-divisible tile sizes,
 tiles past the tensor's end and all-zero rows included (the cases of
 ``tests/test_density_traced.py``) — both one tile at a time and over a
-leading candidate dimension."""
+leading candidate dimension.  A (C, Q) stack of tiles in one call equals
+its Q columns called one by one, as the batched engine's density queries
+need."""
 import numpy as np
 import pytest
 
@@ -128,3 +130,70 @@ def test_instance_wrappers_match_scalar_methods():
     b = port.BandedModel(rows=12, cols=12, half_band=1)
     for t in (2, 6, 9):
         assert float(b.max_nnz_b(float(t))) == b.max_nnz(t)
+
+
+# ----------------------------------------------------------------------
+# a (C, Q) stack of tiles in one call: the batched engine's density
+# queries (core/batched.py, _DensityQueries)
+# ----------------------------------------------------------------------
+def _stack_case(kind):
+    """A port model of ``kind`` and a (C, Q) stack of tiles that includes
+    the tiles whose lgamma terms are invalid (inf or NaN before the
+    ``torch.where`` that masks them)."""
+    rng = np.random.default_rng(11)
+    if kind == "dense":
+        m = port.DenseModel(tensor_size=64)
+        edge = [1, 63, 64, 65, 200]
+    elif kind == "uniform":
+        m = port.UniformModel(tensor_size=64, density=0.75)
+        # S - N = 16: tiles past it have no empty arrangement (an
+        # invalid log C(S - N, T)), tiles past S are clamped, 0 is C(n, 0)
+        edge = [0, 1, 15, 16, 17, 63, 64, 65, 1000]
+    elif kind == "structured":
+        m = port.StructuredModel(tensor_size=96, n=2, m=8)
+        # past m - n + 1 and past m: log C(m - n, t) and log C(m, t) are
+        # -inf, their difference NaN, selected away
+        edge = [0, 1, 5, 6, 7, 8, 9, 17, 96]
+    elif kind == "banded":
+        m = port.BandedModel(rows=16, cols=24, half_band=2)
+        edge = [1, 2, 6, 7, 16, 25, 63, 64, 384]
+    else:
+        m = port.ActualDataModel(
+            data=(rng.random((9, 11)) < 0.3).astype(float))
+        edge = [1, 2, 10, 11, 98, 99, 100, 500]
+    cols = edge + [int(t) for t in rng.integers(1, 130, size=6)]
+    C = 5
+    tiles = np.stack([np.roll(cols, c) for c in range(C)]).astype(np.float64)
+    return m, torch.as_tensor(tiles)
+
+
+@pytest.mark.parametrize("every_kind", [False, True],
+                         ids=["own_kind", "every_kind"])
+@pytest.mark.parametrize("kind", port.MODEL_KINDS)
+def test_one_call_on_a_stack_equals_one_call_per_column(kind, every_kind):
+    """One statistic on a (C, Q) stack of tiles is the Q (C,) calls on its
+    columns, to 1e-12 relative, for every kind and statistic: with the
+    kind known on the host (the engine's call) and with every kind
+    evaluated and selected by ``torch.where`` (the unselected branches
+    hold inf and NaN here)."""
+    m, tiles = _stack_case(kind)
+    # every kind reads its own params here, so the actual-data branch's
+    # table covers the largest tensor_size of the cases (banded's 384)
+    caps = port.DensityCaps(coord=16, div=32, hist=512)
+    stats = port.TracedDensityStats(caps)
+    params = torch.as_tensor(m.params())
+    hist = np.zeros((3, caps.hist))
+    hist[:, : m.hist_table().shape[1]] = m.hist_table()
+    hist = torch.as_tensor(hist)
+    kind_id = torch.tensor(m.kind_id)
+    kinds = None if every_kind else (m.kind_id,)
+    for name in ("prob_empty", "expected_density", "max_nnz"):
+        fn = getattr(stats, name)
+        whole = fn(kind_id, params, hist, tiles, kinds=kinds)
+        assert whole.shape == tiles.shape
+        cols = torch.stack([fn(kind_id, params, hist, tiles[:, q],
+                               kinds=kinds)
+                            for q in range(tiles.shape[1])], -1)
+        assert torch.isfinite(whole).all(), (name, whole)
+        torch.testing.assert_close(whole, cols, rtol=1e-12, atol=0.0,
+                                   msg=f"{kind} {name}")

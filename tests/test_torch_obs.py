@@ -2,7 +2,8 @@
 records with it.
 
 On the CPU: spans nest per thread, tracing off is one shared no-op, an
-export passes the Chrome-trace schema check, and a fused search's span
+export passes the Chrome-trace schema check, an evaluation's density
+histograms reach the export's metrics, and a fused search's span
 tree is ``search.run`` over ``search.prepare``, one ``search.chunk``
 (each over ``engine.eval`` and ``search.fold``) a chunk, then
 ``search.validate``, with no ``device_s`` (no CUDA events on the CPU).
@@ -129,6 +130,31 @@ def test_an_export_passes_the_schema_check(tracer, tmp_path):
         {"name": "p", "ph": "X", "ts": 0, "dur": 10, "pid": 0, "tid": 0},
         {"name": "q", "ph": "X", "ts": 5, "dur": 10, "pid": 0, "tid": 0}]}
     assert any("unbalanced" in e for e in obs.validate_chrome_trace(bad))
+
+
+def test_density_histograms_in_the_metrics_export(tracer, tmp_path):
+    """One evaluation observes the engine's density queries and
+    statistics evaluations; both histograms reach the export's metrics
+    snapshot."""
+    from repro_torch.core import Sparseloop
+    from repro_torch.core.mapping import Loop, LoopNest
+    nest = LoopNest(loops=(Loop("m", 32, 1), Loop("n", 8, 1),
+                           Loop("n", 4, 1, True), Loop("k", 32, 0)),
+                    num_levels=2)
+    out = Sparseloop(DESIGN, device="cpu").evaluate_batch(
+        WL, [nest], check_capacity=False)
+    assert out["cycles"].shape == (1,)
+    assert tracer.find("engine.compile") or tracer.find("engine.eval")
+    path = obs.write_chrome_trace(tmp_path / "trace.json", tracer.spans,
+                                  obs.metrics.snapshot())
+    assert obs.validate_chrome_trace_file(path) == []
+    events = json.loads(open(path).read())["traceEvents"]
+    snap, = [e["args"] for e in events if e["name"] == "metrics"]
+    queries = snap["engine.density_queries"]
+    evals = snap["engine.density_evals"]
+    assert queries["kind"] == evals["kind"] == "histogram"
+    assert queries["count"] >= 1 and evals["count"] >= 1
+    assert queries["max"] > evals["max"] > 0
 
 
 # ----------------------------------------------------------------------
