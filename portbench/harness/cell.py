@@ -2,7 +2,8 @@
 metrics, the result line.
 
 Everything a cell is made of is found by name: ``BENCHMARK.json``'s
-``workloads`` entry names a configuration (``configs/<config>.json``) and
+``workloads`` entry names a configuration (the ``file`` of its
+``configs`` entry, ``configs/<config>.json``) and
 a traffic mix (``traffic/<traffic>.json``, whose ``mode`` picks the
 generator: :data:`DRIVERS`), and each metric is read by
 ``metrics/<name>.py``'s ``read(ctx)``.  A reader that finds nothing to
@@ -52,6 +53,13 @@ def cell_entry(bench: dict, name: str) -> dict:
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
 
 
+def config_entry(bench: dict, name: str) -> dict:
+    for c in bench["configs"]:
+        if c["name"] == name:
+            return c
+    raise KeyError(f"no config {name!r} in BENCHMARK.json")
+
+
 def metrics_for(bench: dict, cell: str, trace: bool) -> list[dict]:
     """The cell's end-to-end metrics (``trace`` False) or per-layer
     metrics (``trace`` True), as ``BENCHMARK.json`` lists them."""
@@ -94,7 +102,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     t_start = time.perf_counter() if t_start is None else t_start
     bench = bench or load_benchmark()
     cell = cell_entry(bench, name)
-    cfg = Config.load(cell["config"])
+    cfg = Config.load_file(ROOT.parent / config_entry(bench, cell["config"])
+                           ["file"], cell["config"])
     traffic = json.loads((ROOT / "traffic" / f"{cell['traffic']}.json")
                          .read_text())
     traffic.update(overrides or {})

@@ -28,7 +28,10 @@ tensor forms taken out; all prob/expectation math is done in log-space
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import math
+import re
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
@@ -298,6 +301,54 @@ class ActualDataModel(DensityModel):
         return int(self._tiled_nnz(min(tile_size, self.tensor_size)).max())
 
 
+#: where a kind that this module does not define is found:
+#: ``kinds/<kind>.py`` (see ``kinds/__init__.py``)
+KINDS = Path(__file__).resolve().parent / "kinds"
+_KIND_NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_\-]{0,63}$")
+_KIND_MODULES: dict = {}
+
+
+def named_kind(kind) -> bool:
+    """Is ``kind`` a kind found by name, a file ``kinds/<kind>.py``?"""
+    return (isinstance(kind, str) and bool(_KIND_NAME.match(kind))
+            and kind != "__init__" and (KINDS / f"{kind}.py").is_file())
+
+
+def _kind_module(path: Path):
+    mod = _KIND_MODULES.get(path)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "portbench_kind_" + path.stem.replace("-", "_"), path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _KIND_MODULES[path] = mod
+    return mod
+
+
+class NamedModel(DensityModel):
+    """A kind found by name: the model its file returns, which answers
+    ``density``, ``prob_empty``, ``expected_density`` and ``max_nnz``;
+    the derived statistics are this base's, and every answer is in the
+    number type the reference computes in."""
+
+    def __init__(self, model, tensor_size: int):
+        self.model = model
+        self.tensor_size = tensor_size
+
+    @property
+    def density(self) -> float:  # type: ignore[override]
+        return real(self.model.density)
+
+    def expected_density(self, tile_size: int) -> float:
+        return real(self.model.expected_density(tile_size))
+
+    def prob_empty(self, tile_size: int) -> float:
+        return real(self.model.prob_empty(tile_size))
+
+    def max_nnz(self, tile_size: int) -> int:
+        return int(self.model.max_nnz(tile_size))
+
+
 def make_density_model(spec: object, tensor_size: int) -> DensityModel:
     """Build a model from a workload density spec tuple."""
     if spec is None:
@@ -315,4 +366,7 @@ def make_density_model(spec: object, tensor_size: int) -> DensityModel:
                            half_band=int(arg["half_band"]))
     if kind == "actual":
         return ActualDataModel(data=np.asarray(arg))
+    if named_kind(kind):
+        return NamedModel(_kind_module(KINDS / f"{kind}.py").model(
+            dict(arg or {}), tensor_size), tensor_size)
     raise ValueError(f"unknown density spec {spec!r}")

@@ -32,9 +32,9 @@ def _id(p):
     return f"{p[0]}-{'fused' if p[1] else 'host'}"
 
 
-def _run(cell, fused=True, seconds=1.0):
+def _run(cell, fused=True, seconds=1.0, bench=None):
     line, notes = run_cell(cell, SEED, seconds, False, device="cpu",
-                           overrides=dict(SMALL, fused=fused))
+                           bench=bench, overrides=dict(SMALL, fused=fused))
     assert notes["rows_judged"] > 0
     return line
 
@@ -47,12 +47,20 @@ def test_cells_as_they_are_are_correct(path):
     assert list(line)[-1] == "checks"
 
 
-@pytest.mark.parametrize("path", PATHS, ids=_id)
-def test_the_control_fails(path, monkeypatch):
+@pytest.mark.parametrize("path", PATHS + [("stc", True)], ids=_id)
+def test_the_control_fails(path, monkeypatch, request):
     """The rows and generations a run judged, with the float32
     reference's answers in the program's place, fail the limits; the
-    program's pass."""
+    program's pass.  Also on the 2:4 STC configuration
+    (``conftest.STC``), where the control is float32's rounding alone,
+    which the limit of 1e-6 let pass."""
     from portbench.harness import cell as cellmod
+    stc = path[0] == "stc"
+    if stc:
+        ns = request.getfixturevalue("stc")
+        path, bench = (ns.cell, True), ns.bench
+    else:
+        bench = None
     seen = {}
     real = judge.readings
 
@@ -60,7 +68,7 @@ def test_the_control_fails(path, monkeypatch):
         seen.update(rows=rows, cfg=cfg, gens=kw.get("gens", ()))
         return real(rows, cfg, **kw)
     monkeypatch.setattr(cellmod.judge, "readings", keep)
-    assert _run(*path)["correct"]
+    assert _run(*path, bench=bench)["correct"]
     rows, gens, cfg = seen["rows"], seen["gens"], seen["cfg"]
     assert bool(gens) == path[1]
     ok, _ = judge.verdict(real(rows, cfg, gens=gens))
@@ -68,7 +76,12 @@ def test_the_control_fails(path, monkeypatch):
     ctl_rows, ctl_gens = judge.control(rows, gens, cfg)
     ctl = real(ctl_rows, cfg, gens=ctl_gens)
     ok, checks = judge.verdict(ctl)
-    assert not ok and ctl["metric_gap"] > 10 * judge.LIMITS["metric_gap"], checks
+    if stc:
+        assert not ok and judge.LIMITS["metric_gap"] < ctl["metric_gap"] < 1e-6, \
+            checks
+    else:
+        assert not ok and ctl["metric_gap"] > 10 * judge.LIMITS["metric_gap"], \
+            checks
 
 
 def _fault_engine_altered(monkeypatch):
@@ -167,12 +180,18 @@ def test_a_winner_altered_is_not_correct(monkeypatch):
 
 
 def test_limits_lie_between_the_readings():
-    """The limits as PERF.md records them: above the program's widest
-    gap over the seeds read on the card, below the control's smallest."""
+    """The limits as PERF.md records them: ``metric_gap``'s at the
+    geometric middle of the program's widest gap over the seeds read on
+    the card (never under 2.44e-9, the widest of the first cells' first
+    seeds) and the float32 control's
+    narrowest over the configurations these tests hold."""
     for k in ("missing", "illegal", "stalled", "valid_mismatch",
               "valid_count_gap"):
         assert judge.LIMITS[k] == 0
-    assert 1e-7 < judge.LIMITS["metric_gap"] < 1e-4
+    lower, upper = judge.METRIC_GAP_READINGS
+    limit = judge.LIMITS["metric_gap"]
+    assert 2.44e-9 <= lower < limit < upper
+    assert limit == pytest.approx((lower * upper) ** 0.5, rel=0.02)
     for w in load_benchmark()["workloads"]:
         assert Config.load(w["config"]).precision == "float64"
 
