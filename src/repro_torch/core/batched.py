@@ -1819,9 +1819,10 @@ def group_by_template(nests) -> dict[NestTemplate, list[int]]:
 def batched_supported(design, workload: Workload) -> bool:
     """True when every tensor's density model has a traceable form.
 
-    Every Table-4 model now does — actual-data lowers through its
-    tile-occupancy histogram — so this only rejects unknown density
-    specs (and stays as the dispatch guard for future model kinds)."""
+    Every model of ``density.MODEL_KINDS`` does — actual-data lowers
+    through its tile-occupancy histogram, banded and causal through
+    closed forms and row-strip scans — so this only rejects unknown
+    density specs (and stays as the dispatch guard for future kinds)."""
     try:
         for t in workload.tensors:
             m = make_density_model(workload.density_spec(t.name),

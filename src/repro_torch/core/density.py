@@ -20,9 +20,13 @@ Supported models (Table 4):
                      tensor.  Coordinate *dependent*.
   actual           : wraps a concrete numpy array; exact empirical tile
                      statistics.  Coordinate dependent, non-statistical.
+  causal           : a one-sided band, the causal attention map: element
+                     (i, j) is nonzero iff i - window < j <= i.  Coordinate
+                     dependent; exact counts in closed form.
 
 The scalar models (``DensityModel`` and its subclasses) are a copy of the
-JAX package's; all prob/expectation math is done in log-space (lgamma).
+JAX package's, except ``causal``, which the JAX package lacks; all
+prob/expectation math is done in log-space (lgamma).
 
 Tensor parametric interface (workload-as-data)
 ----------------------------------------------
@@ -55,9 +59,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-#: density-model kind ids (the selection index of TracedDensityStats)
-DENSE_ID, UNIFORM_ID, STRUCTURED_ID, BANDED_ID, ACTUAL_ID = range(5)
-MODEL_KINDS = ("dense", "uniform", "structured", "banded", "actual")
+#: density-model kind ids (the selection index of TracedDensityStats);
+#: a new kind takes the next id, so the ids of programs built before it
+#: stay as they were
+DENSE_ID, UNIFORM_ID, STRUCTURED_ID, BANDED_ID, ACTUAL_ID, CAUSAL_ID = \
+    range(6)
+MODEL_KINDS = ("dense", "uniform", "structured", "banded", "actual",
+               "causal")
 
 #: fixed length of every model's traced parameter vector
 NUM_DENSITY_PARAMS = 4
@@ -97,11 +105,11 @@ class DensityCaps:
 
     Traced programs need static array shapes; coordinate-dependent
     statistics don't have any.  The caps bound them: ``coord`` >= the
-    row count of any banded tensor (row-scan length), ``div`` >= the
-    isqrt of any banded tensor's size (tile-shape divisor scan), and
+    row count of any banded or causal tensor (row-scan length), ``div``
+    >= the isqrt of any such tensor's size (tile-shape divisor scan), and
     ``hist`` >= the size of any actual-data tensor (histogram table
     length).  Zero means "no tensor of that family" and prunes the
-    corresponding branch of the kind selection entirely.  Caps are part of a
+    corresponding branches of the kind selection entirely.  Caps are part of a
     compiled program's cache key; :func:`caps_for_models` rounds them up
     to powers of two so layers of similar size land on the same program.
     """
@@ -130,7 +138,7 @@ def caps_for_models(models: Sequence["DensityModel"],
     to powers of two by default, so similarly-sized layers share)."""
     coord = div = hist = 0
     for m in models:
-        if isinstance(m, BandedModel):
+        if isinstance(m, (BandedModel, CausalModel)):
             coord = max(coord, m.rows)
             div = max(div, max(1, math.isqrt(max(1, m.rows * m.cols))))
         elif isinstance(m, ActualDataModel):
@@ -219,20 +227,63 @@ def structured_max_nnz_t(p, h, t):
     return torch.minimum(tt, full * n + torch.minimum(rem, n))
 
 
-def _banded_grid_t(p, t, caps: DensityCaps):
+# Integer counts of the two band kinds.  Each takes Python ints (the
+# scalar models: exact) or int64 tensors of one shape (the tensor forms).
+def _clamp0(x):
+    return x.clamp(min=0) if isinstance(x, torch.Tensor) else max(x, 0)
+
+
+def _tri(m, c):
+    """sum_{u=1..m} min(c, u), for m, c >= 0."""
+    s = torch.minimum(m, c) if isinstance(m, torch.Tensor) else min(m, c)
+    return s * (s + 1) // 2 + (m - s) * c
+
+
+def _diag_ge(R, C, n):
+    """#{(x, y) in [0, R) x [0, C) : x - y >= n}."""
+    below = _tri(_clamp0(R - n), C)                 # n >= 0
+    above = R * C - _tri(_clamp0(C + n - 1), R)     # n < 0
+    if isinstance(n, torch.Tensor):
+        return torch.where(n >= 0, below, above)
+    return below if n >= 0 else above
+
+
+def _band_count(R, C, lo, hi):
+    """#{(x, y) in [0, R) x [0, C) : lo <= x - y <= hi}, R, C >= 0: the
+    nonzeros of an R x C rectangle of a band, in closed form (triangle
+    numbers).  ``banded`` is the band (-w, w) and ``causal`` (0, w - 1)
+    from the rectangle's corner; a rectangle at offset r0 - c0 = d
+    shifts the band by -d."""
+    return _diag_ge(R, C, lo) - _diag_ge(R, C, hi + 1)
+
+
+def _scan_dtype(caps: DensityCaps) -> torch.dtype:
+    """The integer type of the causal kind's (candidate, scan) tensors:
+    int32 where every value they hold (offsets up to ``8 (div + 1)^2 +
+    8 coord (div + 1)``, for tiles no larger than the tensor) fits, which
+    halves their bytes and keeps their divisions 32-bit; int64 past
+    that."""
+    big = 8 * (caps.div + 1) ** 2 + 8 * caps.coord * (caps.div + 1)
+    return torch.int32 if big < 2 ** 31 else torch.int64
+
+
+def _band_grid_t(p, t, caps: DensityCaps, scan=torch.int64):
     """Tensor mirror of ``BandedModel._tile_shape`` + aligned-grid setup
-    with the band geometry as params [size, rows, cols, w].
+    with the band geometry as params [size, rows, cols, w] (both band
+    kinds).
 
     ``tr`` is the largest divisor of the tile size <= floor(sqrt(t))
     (what the scalar decrement loop finds), found by scanning the static
-    divisor range ``1..caps.div`` along a trailing axis."""
+    divisor range ``1..caps.div`` along a trailing axis, in ``scan``'s
+    integer type (tiles no larger than the tensor fit it)."""
     rows = torch.round(p[1]).long()
     cols = torch.round(p[2]).long()
     ti = torch.clamp(torch.round(_tile(p, t)), min=1.0).long()
-    d = torch.arange(1, caps.div + 1, dtype=torch.int64, device=ti.device)
-    root = torch.floor(torch.sqrt(ti.double())).long()
-    ok = (torch.remainder(ti[..., None], d) == 0) & (d <= root[..., None])
-    tr = torch.where(ok, d, 1).amax(-1)
+    d = torch.arange(1, caps.div + 1, dtype=scan, device=ti.device)
+    root = torch.floor(torch.sqrt(ti.double())).to(scan)
+    ts = ti if scan == torch.int64 else ti.clamp(max=2 ** 31 - 1).to(scan)
+    ok = (torch.remainder(ts[..., None], d) == 0) & (d <= root[..., None])
+    tr = torch.where(ok, d, 1).amax(-1).long()
     tc = _floordiv(ti, tr)
     nr = torch.clamp(_floordiv(rows, tr), min=1)
     nc = torch.clamp(_floordiv(cols, tc), min=1)
@@ -241,7 +292,7 @@ def _banded_grid_t(p, t, caps: DensityCaps):
 
 def banded_prob_empty_t(p, h, t, caps: DensityCaps):
     del h
-    _, tr, tc, nr, nc, rows, _cols = _banded_grid_t(p, t, caps)
+    _, tr, tc, nr, nc, rows, _cols = _band_grid_t(p, t, caps)
     w = torch.round(p[3]).long()
     ti = torch.arange(caps.coord, dtype=torch.int64, device=tr.device)
     tr_, tc_ = tr[..., None], tc[..., None]
@@ -260,20 +311,17 @@ def banded_prob_empty_t(p, h, t, caps: DensityCaps):
 
 def banded_expected_density_t(p, h, t, caps: DensityCaps):
     del h
-    ti, tr, tc, nr, nc, rows, _cols = _banded_grid_t(p, t, caps)
+    ti, tr, tc, nr, nc, rows, _cols = _band_grid_t(p, t, caps)
     w = torch.round(p[3]).long()
-    i = torch.arange(caps.coord, dtype=torch.int64, device=tr.device)
     covered_rows = torch.minimum(nr * tr, rows)
     covered_cols = nc * tc          # c1 is never clamped to cols
-    ln = torch.clamp(torch.minimum(covered_cols[..., None], i + w + 1)
-                     - torch.clamp(i - w, min=0), min=0)
-    nnz = torch.where(i < covered_rows[..., None], ln, 0).sum(-1)
+    nnz = _band_count(covered_rows, covered_cols, -w, w)
     return nnz.double() / ((nr * nc).double() * ti.double())
 
 
 def banded_max_nnz_t(p, h, t, caps: DensityCaps):
     del h
-    ti, tr, tc, nr, _nc, rows, cols = _banded_grid_t(p, t, caps)
+    ti, tr, tc, nr, _nc, rows, cols = _band_grid_t(p, t, caps)
     w = torch.round(p[3]).long()
     i = torch.arange(caps.coord, dtype=torch.int64, device=tr.device)
     tix = _floordiv(i, tr[..., None])
@@ -298,6 +346,74 @@ def banded_max_nnz_t(p, h, t, caps: DensityCaps):
     root = torch.floor(torch.sqrt(ti.double())).long()
     fallback = torch.minimum(ti, (2 * w + 1) * root + 1)
     return torch.where(best > 0, torch.minimum(ti, best), fallback).double()
+
+
+def _causal_geometry_t(p, t, caps: DensityCaps):
+    """The aligned grid of a causal tensor (``_band_grid_t``), the
+    window ``w`` and a tile's extent inside the tensor ``hh x kk``."""
+    ti, tr, tc, nr, nc, rows, cols = _band_grid_t(p, t, caps,
+                                                  _scan_dtype(caps))
+    w = torch.round(p[3]).long()
+    return (ti, tr, tc, nr, nc, rows, cols, w, torch.minimum(tr, rows),
+            torch.minimum(tc, cols))
+
+
+def _strips(caps: DensityCaps, *per_tile):
+    """The row-strip index ``a`` (``caps.coord`` of them) and each
+    per-tile tensor with a trailing axis, in the scan's integer type."""
+    scan = _scan_dtype(caps)
+    a = torch.arange(caps.coord, dtype=scan, device=per_tile[0].device)
+    return (a,) + tuple(x.to(scan)[..., None] for x in per_tile)
+
+
+def causal_prob_empty_t(p, h, t, caps: DensityCaps):
+    """params: [tensor_size, rows, cols, window].  Tile (a, b) is
+    nonempty iff its offset a*tr - b*tc lies in [1 - hh, w + kk - 2]:
+    per row-strip a contiguous run of b, summed in one masked
+    O(caps.coord) reduction."""
+    del h
+    _, tr, tc, nr, nc, _, _, w, hh, kk = _causal_geometry_t(p, t, caps)
+    a, tr_, tc_, nr_, last, top, bottom = _strips(
+        caps, tr, tc, nr, nc - 1, hh - 1, w + kk - 2)
+    r0 = a * tr_
+    b_hi = torch.minimum(_floordiv(r0 + top, tc_), last)
+    b_lo = torch.clamp(-_floordiv(bottom - r0, tc_), min=0)
+    run = torch.where(a < nr_, torch.clamp(b_hi - b_lo + 1, min=0),
+                      0).sum(-1)
+    return (nr * nc - run).double() / (nr * nc).double()
+
+
+def causal_expected_density_t(p, h, t, caps: DensityCaps):
+    """The band's nonzeros in the grid's rectangle, in closed form."""
+    del h
+    ti, tr, tc, nr, nc, rows, cols, w, _, _ = _causal_geometry_t(p, t, caps)
+    nnz = _band_count(torch.minimum(nr * tr, rows),
+                      torch.minimum(nc * tc, cols), 0, w - 1)
+    return nnz.double() / ((nr * nc).double() * ti.double())
+
+
+def causal_max_nnz_t(p, h, t, caps: DensityCaps):
+    """A tile's nonzeros fall as its offset leaves the centre
+    ``c2 / 2``: per row-strip the offset nearest the centre is one of
+    two, the least distance over the strips is one masked
+    O(caps.coord) reduction, and the count at that offset is closed
+    form."""
+    del h
+    ti, tr, tc, nr, nc, _, _, w, hh, kk = _causal_geometry_t(p, t, caps)
+    c2 = kk + w - hh - 1
+    far = 2 * (nr * tr + nc * tc) + torch.abs(c2)
+    a, tr_, tc_, nr_, last, c2_, far_ = _strips(caps, tr, tc, nr, nc - 1,
+                                                c2, far)
+    r0 = a * tr_
+    b1 = _floordiv(2 * r0 - c2_, 2 * tc_)
+    e = far_
+    for b in (b1, b1 + 1):
+        d = torch.abs(2 * (r0 - torch.clamp(torch.minimum(b, last), min=0)
+                           * tc_) - c2_)
+        e = torch.minimum(e, d)
+    e = torch.where(a < nr_, e, far_).amin(-1).long()
+    off = _floordiv(c2 + e, 2)
+    return torch.minimum(ti, _band_count(hh, kk, -off, w - 1 - off)).double()
 
 
 def _actual_index(p, t):
@@ -326,37 +442,39 @@ class TracedDensityStats:
     ``expected_density`` / ``max_nnz``) evaluate the kinds present and
     pick with ``torch.where`` on ``kind``, so one program evaluates
     tensors of mixed density kinds and the kind itself is workload data.
-    ``kinds`` names the kind ids that may occur (all five by default);
+    ``kinds`` names the kind ids that may occur (all of them by default);
     the batched engine passes the one kind its host-side workload params
     hold, so a tensor pays for its own kind only.  Branches whose static
-    capacity is zero (no banded / no actual tensor can ever be selected)
-    are pruned to the trivial dense form."""
+    capacity is zero (no banded or causal / no actual tensor can ever be
+    selected) are pruned to the trivial dense form."""
 
     def __init__(self, caps: DensityCaps):
         self.caps = caps
-        banded_ok = caps.coord > 0 and caps.div > 0
+        band_ok = caps.coord > 0 and caps.div > 0
         actual_ok = caps.hist > 0
 
-        def with_caps(fn):
-            return lambda p, h, t: fn(p, h, t, caps)
+        def band(fn, dense):
+            return (lambda p, h, t: fn(p, h, t, caps)) if band_ok else dense
 
         self._pe = (dense_prob_empty_t, uniform_prob_empty_t,
                     structured_prob_empty_t,
-                    with_caps(banded_prob_empty_t) if banded_ok
-                    else dense_prob_empty_t,
+                    band(banded_prob_empty_t, dense_prob_empty_t),
                     actual_prob_empty_t if actual_ok
-                    else dense_prob_empty_t)
+                    else dense_prob_empty_t,
+                    band(causal_prob_empty_t, dense_prob_empty_t))
         self._ed = (dense_expected_density_t, uniform_expected_density_t,
                     structured_expected_density_t,
-                    with_caps(banded_expected_density_t) if banded_ok
-                    else dense_expected_density_t,
+                    band(banded_expected_density_t,
+                         dense_expected_density_t),
                     actual_expected_density_t if actual_ok
-                    else dense_expected_density_t)
+                    else dense_expected_density_t,
+                    band(causal_expected_density_t,
+                         dense_expected_density_t))
         self._mx = (dense_max_nnz_t, uniform_max_nnz_t,
                     structured_max_nnz_t,
-                    with_caps(banded_max_nnz_t) if banded_ok
-                    else dense_max_nnz_t,
-                    actual_max_nnz_t if actual_ok else dense_max_nnz_t)
+                    band(banded_max_nnz_t, dense_max_nnz_t),
+                    actual_max_nnz_t if actual_ok else dense_max_nnz_t,
+                    band(causal_max_nnz_t, dense_max_nnz_t))
 
     @staticmethod
     def _select(branches, kind, params, hist, tile_size, kinds):
@@ -680,6 +798,173 @@ class BandedModel(DensityModel):
                                 self._self_caps())
 
 
+def _floor_sum(n: int, m: int, a: int, b: int) -> int:
+    """sum_{i=0..n-1} floor((a*i + b) / m) for n >= 0, m >= 1 and
+    a, b >= 0, in O(log m) steps (the Euclid-like reduction of AtCoder's
+    ``floor_sum``)."""
+    total = 0
+    while True:
+        if a >= m:
+            total += n * (n - 1) // 2 * (a // m)
+            a %= m
+        if b >= m:
+            total += n * (b // m)
+            b %= m
+        y = a * n + b
+        if y < m:
+            return total
+        n, b = divmod(y, m)
+        m, a = a, m
+
+
+@dataclasses.dataclass
+class CausalModel(DensityModel):
+    """Causal (one-sided) band of a 2-D tensor: element (i, j) is
+    nonzero iff ``i - window < j <= i``, the attention map of a causal
+    (``window`` >= rows: full) or sliding-window mask.
+
+    Tiles follow ``BandedModel``'s aligned convention: a tile of ``t``
+    elements is ``tr x tc``, ``tr`` the largest divisor of ``t`` at most
+    ``sqrt(t)`` and ``tc = t // tr``, and the grid is ``nr x nc`` tiles
+    from the origin, ``nr = max(1, rows // tr)``, ``nc = max(1, cols //
+    tc)``.  Edge cases, once: rows and columns past the grid are left
+    out; a tile taller (wider) than the tensor holds the tensor's rows
+    (columns) and zeros past them, so every tile holds ``hh x kk =
+    min(tr, rows) x min(tc, cols)`` of the tensor's elements, and its
+    density is over all ``t``.  A window >= rows is the full causal
+    mask (so ``window`` is held at most ``rows``).
+
+    Every statistic is an exact count in closed form, with no loop over
+    rows, tiles or elements.  A tile's nonzeros depend only on its
+    offset ``d = a*tr - b*tc`` (row origin less column origin):
+    ``_band_count(hh, kk, -d, w - 1 - d)``, symmetric and unimodal in
+    ``d`` about ``c2 / 2``, ``c2 = kk + w - hh - 1``; it is nonzero
+    iff ``1 - hh <= d <= w + kk - 2``.  The tiles whose offset lies in
+    a range are a sum of floors over row-strips (:meth:`_tiles_between`,
+    ``_floor_sum``), so ``prob_empty`` counts the nonempty ones, and
+    ``max_nnz`` is the count at the offset nearest the centre, found by
+    bisection on that distance.  ``expected_density`` is the band's
+    nonzeros in the grid's rectangle.  The tensor forms
+    (``causal_*_t``) compute the same counts, with one masked
+    O(``caps.coord``) reduction over row-strips in ``prob_empty`` and
+    ``max_nnz``.
+    """
+
+    rows: int
+    cols: int
+    window: int
+    batched = True
+    kind_id = CAUSAL_ID
+
+    def __post_init__(self) -> None:
+        for name in ("rows", "cols", "window"):
+            v = getattr(self, name)
+            if isinstance(v, bool) or int(v) != v or v < 1:
+                raise ValueError(f"causal {name} must be a whole number "
+                                 f">= 1, got {v!r}")
+            setattr(self, name, int(v))
+
+    @property
+    def w(self) -> int:
+        return min(self.window, self.rows)
+
+    @property
+    def tensor_size(self) -> int:  # type: ignore[override]
+        return self.rows * self.cols
+
+    @property
+    def density(self) -> float:  # type: ignore[override]
+        return (_band_count(self.rows, self.cols, 0, self.w - 1)
+                / self.tensor_size)
+
+    def _grid(self, tile_size) -> tuple[int, ...]:
+        """``(t, tr, tc, nr, nc, hh, kk)`` of a tile size."""
+        t = max(1, int(tile_size))
+        tr = math.isqrt(t)
+        while t % tr:
+            tr -= 1
+        tc = t // tr
+        return (t, tr, tc, max(1, self.rows // tr), max(1, self.cols // tc),
+                min(tr, self.rows), min(tc, self.cols))
+
+    @staticmethod
+    def _tiles_between(tr: int, tc: int, nr: int, nc: int, lo: int,
+                       hi: int) -> int:
+        """#{(a, b) in [0, nr) x [0, nc) : lo <= a*tr - b*tc <= hi}.
+
+        Strip ``a`` holds ``b`` in ``[ceil((a*tr - hi)/tc), floor((a*tr -
+        lo)/tc)]`` clipped to ``[0, nc)``; both ends grow with ``a``, so
+        the strips that hold any form a range, over which each clip is
+        active on a prefix or a suffix, and the rest are floor sums."""
+        if lo > hi:
+            return 0
+        a_s = max(0, -(-lo // tr))                  # floor((a tr - lo)/tc) >= 0
+        a_e = min(nr, (hi + (nc - 1) * tc) // tr + 1)   # ceil(...) <= nc - 1
+        if a_e <= a_s:
+            return 0
+        # sum of min(nc - 1, floor((a tr - lo)/tc)): unclipped below a_m
+        a_m = min(max((lo + nc * tc - 1) // tr + 1, a_s), a_e)
+        top = (_floor_sum(a_m - a_s, tc, tr, a_s * tr - lo)
+               + (a_e - a_m) * (nc - 1))
+        # sum of max(0, ceil((a tr - hi)/tc)): positive from a_z
+        a_z = min(max(-(-(hi + 1) // tr), a_s), a_e)
+        bottom = _floor_sum(a_e - a_z, tc, tr, a_z * tr - hi + tc - 1)
+        return top - bottom + (a_e - a_s)
+
+    def prob_empty(self, tile_size: int) -> float:
+        t, tr, tc, nr, nc, hh, kk = self._grid(tile_size)
+        full = self._tiles_between(tr, tc, nr, nc, 1 - hh,
+                                   self.w + kk - 2)
+        return (nr * nc - full) / (nr * nc)
+
+    def expected_density(self, tile_size: int) -> float:
+        t, tr, tc, nr, nc, _, _ = self._grid(tile_size)
+        nnz = _band_count(min(nr * tr, self.rows), min(nc * tc, self.cols),
+                          0, self.w - 1)
+        return nnz / (nr * nc * t)
+
+    def max_nnz(self, tile_size: int) -> int:
+        t, tr, tc, nr, nc, hh, kk = self._grid(tile_size)
+        c2 = kk + self.w - hh - 1
+
+        def near(e: int) -> bool:
+            """Some tile's offset d has |2d - c2| <= e."""
+            return self._tiles_between(tr, tc, nr, nc, -((e - c2) // 2),
+                                       (c2 + e) // 2) > 0
+
+        lo, hi = 0, 2 * max((nr - 1) * tr, (nc - 1) * tc) + abs(c2)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if near(mid):
+                hi = mid
+            else:
+                lo = mid + 1
+        off = (c2 + lo) // 2
+        return min(t, _band_count(hh, kk, -off, self.w - 1 - off))
+
+    # ---------------- tensor closed forms (core.batched) ----------------
+    def params(self) -> np.ndarray:
+        return np.asarray([self.tensor_size, self.rows, self.cols, self.w],
+                          np.float64)
+
+    def _self_caps(self) -> DensityCaps:
+        """Exact (unrounded) capacities for the instance wrappers."""
+        return DensityCaps(coord=self.rows,
+                           div=max(1, math.isqrt(self.tensor_size)))
+
+    def prob_empty_b(self, tile_size):
+        return causal_prob_empty_t(self._params_t(), None, tile_size,
+                                   self._self_caps())
+
+    def expected_density_b(self, tile_size):
+        return causal_expected_density_t(self._params_t(), None, tile_size,
+                                         self._self_caps())
+
+    def max_nnz_b(self, tile_size):
+        return causal_max_nnz_t(self._params_t(), None, tile_size,
+                                self._self_caps())
+
+
 #: tile-occupancy histograms keyed by the identity of the source array:
 #: the table costs O(n log n) to build (and the workload's density spec
 #: holds the same ndarray across model rebuilds), so it is computed once
@@ -832,4 +1117,7 @@ def make_density_model(spec: object, tensor_size: int) -> DensityModel:
                            half_band=int(arg["half_band"]))
     if kind == "actual":
         return ActualDataModel(data=np.asarray(arg))
+    if kind == "causal":
+        return CausalModel(rows=arg["rows"], cols=arg["cols"],
+                           window=arg["window"])
     raise ValueError(f"unknown density spec {spec!r}")

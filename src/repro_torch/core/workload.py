@@ -72,8 +72,11 @@ class Workload:
     tensors: tuple[TensorSpec, ...]
     output: str
     # tensor name -> density spec, e.g. ("uniform", 0.25) or
-    # ("structured", {"n": 2, "m": 4}) or ("banded", {...}) or
-    # ("actual", np.ndarray).  Missing tensors are dense.
+    # ("structured", {"n": 2, "m": 4}) or
+    # ("banded", {"rows", "cols", "half_band"}) or
+    # ("causal", {"rows", "cols", "window"}): (i, j) nonzero iff
+    # i - window < j <= i, or ("actual", np.ndarray).  Missing tensors
+    # are dense.
     densities: dict[str, object] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:

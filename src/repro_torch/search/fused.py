@@ -24,11 +24,13 @@ A capture or replay that fails raises: there is no eager fallback on
 the card.  On the CPU (``device="cpu"``) the same step runs eagerly.
 
 Measurement: each capture observes the graph's kernel-node count on the
-always-on histogram ``fused.graph_kernels``; with tracing on
-(``obs.enable()`` / ``REPRO_TRACE``) each chunk's ``engine.eval`` span
-carries ``device_s``, the replays' time on the device's own clock (two
-CUDA events around them, read after the chunk's readback), and
-``generations``.
+always-on histogram ``fused.graph_kernels``, and a capture whose program
+evaluates a causal tensor also on ``fused.graph_kernels.causal``; with
+tracing on (``obs.enable()`` / ``REPRO_TRACE``) each chunk's
+``engine.eval`` span carries ``device_s``, the replays' time on the
+device's own clock (two CUDA events around them, read after the chunk's
+readback), ``generations`` and ``density_kinds``, the sorted names of the
+density kinds the program's workload holds.
 
 Randomness is counter-based: every draw is a hash of (seed, generation
 index, draw stream, element index), computed with 32-bit integer
@@ -66,6 +68,7 @@ import torch
 from .. import obs
 from ..core import compile_stats
 from ..core.arch import COMPUTE_FIELDS, STORAGE_FIELDS, pack_arch_params
+from ..core.density import CAUSAL_ID, MODEL_KINDS
 from ..core.batched import (BucketedModel, _ProgramRecord,
                             _device_arch_rows, register_cache_clearer,
                             surrogate_loss)
@@ -248,6 +251,8 @@ class FusedProgram:
         #: its graph) read; each invocation copies its inputs in
         self._state: dict | None = None
         self._wp: tuple | None = None
+        #: sorted names of the density kinds ``_wp`` holds (spans)
+        self.density_kinds: tuple = ()
         self._graph = None
         #: the two timing events around a chunk's replays (traced runs)
         self._events: tuple | None = None
@@ -587,6 +592,8 @@ class FusedProgram:
         leaves = self.bm._bind_params(None)
         if self._wp is None or self._wp[4] != leaves[4]:
             self._wp = tuple(t.clone() for t in leaves[:4]) + (leaves[4],)
+            self.density_kinds = tuple(sorted({MODEL_KINDS[k]
+                                               for k in leaves[4]}))
             self._graph = None
         for dst, src in zip(self._wp[:4], leaves[:4]):
             dst.copy_(src)
@@ -637,10 +644,20 @@ class FusedProgram:
             kernels = _kernel_nodes(graph.raw_cuda_graph())
             graph.instantiate()
             if kernels is not None:
-                obs.metrics.histogram("fused.graph_kernels").observe(kernels)
+                self._observe_kernels(kernels, wp)
             self._graph = graph
             self.captures += 1
         return self._graph
+
+    @staticmethod
+    def _observe_kernels(kernels: int, wp) -> None:
+        """A capture's kernel count, on ``fused.graph_kernels`` and, where
+        the program evaluates a causal tensor, on
+        ``fused.graph_kernels.causal``."""
+        obs.metrics.histogram("fused.graph_kernels").observe(kernels)
+        if CAUSAL_ID in wp[4]:
+            obs.metrics.histogram("fused.graph_kernels.causal").observe(
+                kernels)
 
     # ------------------------------------------------------------------
     def init_carry(self, key) -> tuple:
@@ -694,9 +711,10 @@ class FusedProgram:
         device-to-host copy at the end; on the CPU the step runs
         eagerly.  The first sighting of a (device, pop, genome) shape is
         an ``engine.compile`` span and ``compile_seconds`` (the warm-up
-        and capture), later chunks ``engine.eval``.  With tracing on, on
-        the card, the span's ``device_s`` is the replays' device time,
-        from two CUDA events read after the readback synchronised."""
+        and capture), later chunks ``engine.eval``; either span carries
+        the program's ``density_kinds``.  With tracing on, on the card,
+        the span's ``device_s`` is the replays' device time, from two
+        CUDA events read after the readback synchronised."""
         length = int(length)
         if length < 1:
             raise ValueError(f"chunk length must be >= 1, got {length}")
@@ -714,6 +732,7 @@ class FusedProgram:
                           generations=length) as sp, \
                     torch.no_grad():
                 wp = self._bind()
+                sp.set(density_kinds=self.density_kinds)
                 st = self._static(carry, length)
                 self._load(st, carry)
                 cuda = st["ys"].is_cuda

@@ -9,7 +9,10 @@ on the cases of ``tests/test_batched.py`` and ``tests/test_bucketed.py``
 what the JAX batched engine was itself held to.  Mixed-permutation
 populations are drawn with numpy.  One run's density queries go through
 one statistics chain per (tensor, statistic), counted by dispatched ops
-and by the ``engine.density_*`` histograms."""
+and by the ``engine.density_*`` histograms.  The ``causal`` kind, which
+the JAX package lacks, is held to the port's own scalar model (itself
+held to a brute force in ``tests/test_torch_density.py``), and a program
+without a causal tensor never evaluates its forms."""
 import numpy as np
 import pytest
 
@@ -516,3 +519,86 @@ def test_density_queries_and_evaluations_are_observed():
     assert qc == ec == 1
     assert 0 < es <= 3 * len(bm.workload.tensors)
     assert qs / es > 1
+
+
+# ----------------------------------------------------------------------
+# the causal kind in the engine
+# ----------------------------------------------------------------------
+def _causal_workload(window):
+    from repro_torch.core import matmul
+    return matmul(M, K, N, densities={
+        "A": ("causal", {"rows": M, "cols": K, "window": window}),
+        "B": ("uniform", DB)})
+
+
+@pytest.mark.parametrize("window", [1, 5, M])
+def test_bucketed_parity_causal_density(window):
+    """A causal operand through the bucket program matches the port's
+    scalar engine, candidate for candidate, capacity checked."""
+    ref_design, design = _design("coordinate_list_design", buffer_kwords=2)
+    wl = _causal_workload(window)
+    ref_wl = ref_matmul(M, K, N, densities=DENS)   # the same ranks
+    nests = [from_reference(n) for n in _population(
+        ref_wl, 2, 32, seed=5, spatial={1: {"n": 4}})]
+    engine = Sparseloop(design, device=CPU)
+    out = engine.evaluate_batch(wl, nests, check_capacity=True)
+    valid = 0
+    for i, n in enumerate(nests):
+        ev = engine.evaluate(wl, n, check_capacity=True)
+        assert bool(out["valid"][i]) == bool(ev.result.valid), i
+        valid += bool(ev.result.valid)
+        if ev.result.valid:
+            _assert_matches(out, i, ev)
+    assert valid > 0
+
+
+@pytest.mark.parametrize("a", ["uniform", "structured", "banded"])
+def test_a_program_without_a_causal_tensor_runs_no_causal_form(
+        a, monkeypatch):
+    """Kind pruning keeps the causal forms out of every other program,
+    even one whose caps size a band's scans: with the forms made to
+    raise, a uniform, structured or banded program runs, and dispatches
+    the ops it dispatched before."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core import density, matmul
+    from repro_torch.core.batched import lower_nests
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    spec = {"uniform": ("uniform", DA),
+            "structured": ("structured", {"n": 2, "m": 4}),
+            "banded": ("banded", {"rows": M, "cols": K, "half_band": 2})}[a]
+    wl = matmul(M, K, N, densities={"A": spec, "B": ("uniform", DB)})
+    _, design = _design("coordinate_list_design", buffer_kwords=64)
+    ref_wl = ref_matmul(M, K, N, densities=DENS)
+    nests = [from_reference(n) for n in _population(
+        ref_wl, 2, 16, seed=6, spatial={1: {"n": 4}})]
+    groups = group_by_bucket(nests, tuple(wl.rank_bounds))
+    bucket, idxs = max(groups.items(), key=lambda kv: len(kv[1]))
+    bounds, ids, _ = lower_nests(bucket, nests, idxs)
+
+    def run():
+        clear_caches()
+        bm = get_bucketed_model(design, wl, bucket, device=CPU)
+        n = len(bounds)
+        (b, rank_ids), rows = bm._upload([bounds, ids],
+                                         bm._bind_arch(None, n), n)
+        Count.ops = 0
+        with torch.no_grad(), Count():
+            out = bm.traced_single(b, rank_ids, bm._bind_params(None), rows)
+        return Count.ops, out["cycles"]
+
+    ops, cycles = run()
+
+    def refuse(*_):
+        raise AssertionError("a causal form ran")
+    for stat in ("prob_empty", "expected_density", "max_nnz"):
+        monkeypatch.setattr(density, f"causal_{stat}_t", refuse)
+    ops2, cycles2 = run()
+    assert ops2 == ops > 0
+    torch.testing.assert_close(cycles2, cycles, rtol=0, atol=0)

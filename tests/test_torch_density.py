@@ -9,7 +9,17 @@ tiles past the tensor's end and all-zero rows included (the cases of
 ``tests/test_density_traced.py``) — both one tile at a time and over a
 leading candidate dimension.  A (C, Q) stack of tiles in one call equals
 its Q columns called one by one, as the batched engine's density queries
-need."""
+need.
+
+The ``causal`` kind, which the JAX package lacks, is held instead to the
+benchmark's plain-PyTorch brute force (``portbench/reference/
+causal_mask.py``), exactly, at every tile size of small tensors, and the
+benchmark's own closed forms (``portbench/reference/kinds/causal.py``)
+to the port's at 4096 x 4096."""
+import importlib.util
+import math
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -17,6 +27,18 @@ torch = pytest.importorskip("torch")
 
 from repro.core import density as ref  # noqa: E402
 from repro_torch.core import density as port  # noqa: E402
+
+REFERENCE = Path(__file__).resolve().parents[1] / "portbench" / "reference"
+
+
+def _load(path: Path):
+    """A file of the benchmark's reference, by path (the benchmark is no
+    package these tests import)."""
+    spec = importlib.util.spec_from_file_location(
+        "causal_ref_" + path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _pair(ref_model):
@@ -115,8 +137,14 @@ def test_zero_caps_prune_banded_and_actual_branches():
     p = torch.as_tensor(port.UniformModel(64, 0.5).params())
     pe = stats.prob_empty(port.BANDED_ID, p, torch.zeros((3, 0)), 4.0)
     assert float(pe) == 0.0          # pruned to the dense form
+    pe = stats.prob_empty(port.CAUSAL_ID, p, torch.zeros((3, 0)), 4.0)
+    assert float(pe) == 0.0
     assert port.caps_for_models(
         [port.UniformModel(1024, 0.5)]) == port.DensityCaps()
+    # a causal tensor sizes the row scan and the divisor scan
+    assert port.caps_for_models([port.CausalModel(48, 20, 5)],
+                                round_pow2=False) == \
+        port.DensityCaps(coord=48, div=30)
 
 
 def test_instance_wrappers_match_scalar_methods():
@@ -157,6 +185,9 @@ def _stack_case(kind):
     elif kind == "banded":
         m = port.BandedModel(rows=16, cols=24, half_band=2)
         edge = [1, 2, 6, 7, 16, 25, 63, 64, 384]
+    elif kind == "causal":
+        m = port.CausalModel(rows=16, cols=24, window=5)
+        edge = [1, 2, 6, 7, 16, 17, 25, 63, 64, 383, 384]
     else:
         m = port.ActualDataModel(
             data=(rng.random((9, 11)) < 0.3).astype(float))
@@ -197,3 +228,98 @@ def test_one_call_on_a_stack_equals_one_call_per_column(kind, every_kind):
         assert torch.isfinite(whole).all(), (name, whole)
         torch.testing.assert_close(whole, cols, rtol=1e-12, atol=0.0,
                                    msg=f"{kind} {name}")
+
+
+# ----------------------------------------------------------------------
+# the causal kind, against the benchmark's brute force
+# ----------------------------------------------------------------------
+CAUSAL_SHAPES = [(12, 12), (9, 16), (16, 7), (1, 10), (10, 1)]
+
+
+@pytest.mark.parametrize("window", [1, 3, 17, "full"])
+@pytest.mark.parametrize("shape", CAUSAL_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_causal_statistics_equal_the_brute_force(shape, window):
+    """Every tile size 1..rows*cols (and past the tensor): the scalar
+    model, the tensor forms behind ``TracedDensityStats`` (the kind a
+    tensor, every kind evaluated and selected) and the instance wrappers
+    give the brute force's exact counts, bit for bit."""
+    bf = _load(REFERENCE / "causal_mask.py")
+    rows, cols = shape
+    w = rows if window == "full" else window
+    m = port.CausalModel(rows=rows, cols=cols, window=w)
+    mask = bf.mask(rows, cols, w)
+    assert m.density == bf.density(mask)
+    tiles = list(range(1, rows * cols + 1)) + [rows * cols + 7]
+    want = [bf.stats(mask, t) for t in tiles]
+    assert [(m.prob_empty(t), m.expected_density(t), m.max_nnz(t))
+            for t in tiles] == want
+    stats = port.TracedDensityStats(port.caps_for_models([m]))
+    params = torch.as_tensor(m.params())
+    tt = torch.tensor(tiles, dtype=torch.float64)
+    kind = torch.tensor(m.kind_id)
+    got = zip(*(getattr(stats, name)(kind, params, None, tt).tolist()
+                for name in ("prob_empty", "expected_density", "max_nnz")))
+    assert [(pe, ed, int(mx)) for pe, ed, mx in got] == want
+    wrapped = zip(m.prob_empty_b(tt).tolist(),
+                  m.expected_density_b(tt).tolist(), m.max_nnz_b(tt).tolist())
+    assert [(pe, ed, int(mx)) for pe, ed, mx in wrapped] == want
+
+
+def test_causal_window_past_the_rows_is_the_full_mask():
+    full = port.CausalModel(rows=9, cols=14, window=9)
+    wide = port.CausalModel(rows=9, cols=14, window=1000)
+    for t in range(1, 9 * 14 + 1):
+        assert (wide.prob_empty(t), wide.expected_density(t),
+                wide.max_nnz(t)) == (full.prob_empty(t),
+                                     full.expected_density(t),
+                                     full.max_nnz(t))
+    np.testing.assert_array_equal(wide.params(), full.params())
+
+
+@pytest.mark.parametrize("bad", [{"window": 0}, {"window": -2},
+                                 {"window": 2.5}, {"window": True},
+                                 {"rows": 0}])
+def test_causal_refuses_a_window_or_shape_that_is_no_whole_number(bad):
+    spec = dict({"rows": 8, "cols": 8, "window": 3}, **bad)
+    with pytest.raises(ValueError, match="causal"):
+        port.make_density_model(("causal", spec), 64)
+
+
+def test_causal_reference_kind_agrees_with_the_port_at_4096():
+    """The benchmark's closed forms (``kinds/causal.py``, plain Python)
+    and the port's, at attention's 4096 x 4096 over 64 seeded tile sizes
+    (divisors of the shape, primes and everything between) and windows
+    full, 1 and 1,000: equal."""
+    kind = _load(REFERENCE / "kinds" / "causal.py")
+    rng = np.random.default_rng(4096)
+    n = 4096 * 4096
+    tiles = ([1, 2, 3, 4096, n, n - 1, 16777213]
+             + [int(t) for t in np.exp(rng.uniform(0, math.log(n), 57))])
+    assert len(tiles) == 64
+    for w in (4096, 1, 1000):
+        mine = port.CausalModel(rows=4096, cols=4096, window=w)
+        theirs = kind.model({"window": w, "rows": 4096, "cols": 4096}, n)
+        assert theirs.density == mine.density
+        for t in tiles:
+            assert (theirs.prob_empty(t), theirs.expected_density(t),
+                    theirs.max_nnz(t)) == (mine.prob_empty(t),
+                                           mine.expected_density(t),
+                                           mine.max_nnz(t)), (w, t)
+
+
+def test_causal_scans_answer_alike_in_either_integer_type():
+    """The row-strip and divisor scans run in int32 where the caps allow
+    (``_scan_dtype``) and in int64 past that: both answer the same."""
+    m = port.CausalModel(rows=24, cols=40, window=7)
+    small = port.DensityCaps(coord=32, div=32)
+    wide = port.DensityCaps(coord=32, div=1 << 15)
+    assert port._scan_dtype(small) == torch.int32
+    assert port._scan_dtype(wide) == torch.int64
+    params = torch.as_tensor(m.params())
+    tt = torch.arange(1, 24 * 40 + 1, dtype=torch.float64)
+    for name in ("prob_empty", "expected_density", "max_nnz"):
+        fn = getattr(port, f"causal_{name}_t")
+        torch.testing.assert_close(fn(params, None, tt, small),
+                                   fn(params, None, tt, wide),
+                                   rtol=0, atol=0)

@@ -6,10 +6,14 @@ export passes the Chrome-trace schema check, an evaluation's density
 histograms reach the export's metrics, and a fused search's span
 tree is ``search.run`` over ``search.prepare``, one ``search.chunk``
 (each over ``engine.eval`` and ``search.fold``) a chunk, then
-``search.validate``, with no ``device_s`` (no CUDA events on the CPU).
-The ``gpu`` cases run the search as a captured graph: ``device_s`` lies
-in (0, the span's length], each capture observes its graph's kernel
-count once, and tracing changes no number of the search's log.
+``search.validate``, with no ``device_s`` (no CUDA events on the CPU);
+its ``engine.*`` spans name the density kinds the program holds, and a
+capture of a program that evaluates a causal tensor observes its kernel
+count on ``fused.graph_kernels.causal`` too (the observation, given a
+count, on the CPU).  The ``gpu`` cases run the search as a captured
+graph: ``device_s`` lies in (0, the span's length], each capture
+observes its graph's kernel count once, and tracing changes no number
+of the search's log.
 """
 import json
 import math
@@ -30,6 +34,9 @@ from repro_torch.search import fused as F  # noqa: E402
 
 WL = matmul(32, 32, 32, densities={"A": ("uniform", 0.3),
                                    "B": ("uniform", 0.3)})
+WL_CAUSAL = matmul(32, 32, 32, densities={
+    "A": ("causal", {"rows": 32, "cols": 32, "window": 8}),
+    "B": ("uniform", 0.3)})
 DESIGN = coordinate_list_design(two_level_arch(buffer_kwords=8))
 CONS = MapspaceConstraints(budget=96, seed=0, spatial={1: {"n": 4}})
 GENS, CHUNK, POP = 5, 2, 64
@@ -45,8 +52,8 @@ def tracer():
         obs.disable()
 
 
-def _fused(device, key=5):
-    return run_search(DESIGN, WL, CONS, strategy="es", key=key, fused=True,
+def _fused(device, key=5, wl=WL):
+    return run_search(DESIGN, wl, CONS, strategy="es", key=key, fused=True,
                       generations=GENS, pop_size=POP,
                       config=SearchConfig(fused_chunk=CHUNK), device=device)
 
@@ -185,6 +192,39 @@ def test_fused_search_span_tree_on_the_cpu(tracer):
     assert not any("device_s" in s.attrs for s in spans)
 
 
+@pytest.mark.parametrize("wl, kinds", [(WL, ("dense", "uniform")),
+                                       (WL_CAUSAL,
+                                        ("causal", "dense", "uniform"))],
+                         ids=["uniform", "causal"])
+def test_fused_spans_name_the_programs_density_kinds(tracer, wl, kinds):
+    """The first chunk's ``engine.compile`` and every later chunk's
+    ``engine.eval`` carry the sorted kinds of the workload's tensors
+    (the output Z dense)."""
+    clear_caches()
+    _fused("cpu", wl=wl)
+    spans = [s for s in tracer.spans
+             if s.name in ("engine.compile", "engine.eval")
+             and s.attrs.get("kind") == "fused"]
+    assert {s.name for s in spans} == {"engine.compile", "engine.eval"}
+    assert all(tuple(s.attrs["density_kinds"]) == kinds for s in spans)
+
+
+def test_a_causal_capture_observes_both_kernel_histograms(monkeypatch):
+    """A capture's kernel count goes to ``fused.graph_kernels`` always
+    and to ``fused.graph_kernels.causal`` where the program's workload
+    holds a causal tensor (the capture itself needs a card: the count is
+    given here)."""
+    from repro_torch.core.density import CAUSAL_ID, UNIFORM_ID
+    monkeypatch.setattr(obs.metrics, "REGISTRY", obs.metrics.Registry())
+    F.FusedProgram._observe_kernels(2509, (None,) * 4 + ((UNIFORM_ID,) * 2,))
+    F.FusedProgram._observe_kernels(2600, (None,) * 4
+                                    + ((CAUSAL_ID, UNIFORM_ID),))
+    snap = obs.metrics.snapshot()
+    assert snap["fused.graph_kernels"]["count"] == 2
+    causal = snap["fused.graph_kernels.causal"]
+    assert (causal["count"], causal["mean"]) == (1, 2600.0)
+
+
 # ----------------------------------------------------------------------
 # on the card
 # ----------------------------------------------------------------------
@@ -230,3 +270,19 @@ def test_cuda_tracing_changes_no_number_of_the_log():
     finally:
         obs.disable()
     assert on == off
+
+
+@pytest.mark.gpu
+def test_cuda_a_causal_capture_observes_its_kernel_count():
+    dev = _card()
+    clear_caches()
+
+    def count(name):
+        return obs.metrics.snapshot().get(name, {}).get("count", 0)
+    plain, causal = count("fused.graph_kernels"), \
+        count("fused.graph_kernels.causal")
+    _fused(dev)
+    assert count("fused.graph_kernels.causal") == causal
+    _fused(dev, wl=WL_CAUSAL)
+    assert count("fused.graph_kernels") - plain == 2
+    assert count("fused.graph_kernels.causal") - causal == 1
