@@ -37,7 +37,10 @@ index, draw stream, element index), computed with 32-bit integer
 arithmetic in int64 tensors, so it lives on the device, is safe to
 capture, and depends on the seed and the generation alone, never on
 the chunking (chunk invariance holds by construction) — and the CPU
-and the card draw the same numbers.
+and the card draw the same numbers.  A generation's draws are hashed in
+one pass (``FusedProgram._draws``): the carried key is mixed once, the
+eight stream keys in one mix, and every stream's counters in one
+tensor, so each draw is the hash it would be with its stream alone.
 
 Hybrid ES+SGD: for co-search genomes (``CoSearchEncoding``) the step
 optionally takes a Lamarckian gradient step on the design genes after
@@ -356,29 +359,55 @@ class FusedProgram:
     # ------------------------------------------------------------------
     # counter-based draws: hash(seed, generation, stream, element)
     # ------------------------------------------------------------------
-    def _uniform(self, key, stream: int, shape) -> torch.Tensor:
-        """float64 uniforms in [0, 1) of ``shape``, 53 bits each, from
-        the carried ``key`` and the draw ``stream``."""
-        n = int(np.prod(shape))
+    def _draws(self, key, requests: dict) -> dict:
+        """float64 uniforms in [0, 1), 53 bits each, for every
+        ``{stream: shape}`` of ``requests``, from the carried ``key``, in
+        one hashing pass: the key is mixed once, the eight stream keys
+        in one mix, and every request's counters in one tensor."""
+        shapes = [(s, tuple(shape)) for s, shape in requests.items()]
+        sizes = [int(np.prod(shape)) for _, shape in shapes]
+
+        def make():
+            dev = self.device
+            salts = torch.as_tensor([0x9E3779B9 * (s + 1) & _M32
+                                     for s in range(_IMMIGRANT + 1)],
+                                    dtype=torch.int64, device=dev)
+            counters = torch.cat([_mix32(torch.arange(
+                2 * n, dtype=torch.int64, device=dev)) for n in sizes])
+            sid = torch.cat([torch.full((2 * n,), s, dtype=torch.int64,
+                                        device=dev)
+                             for (s, _), n in zip(shapes, sizes)])
+            return salts, counters, sid
+
+        salts, counters, sid = self._const(("draws", tuple(shapes)), make)
         k = _mix32(key[0] ^ 0x5BD1E995)
         k = _mix32(k ^ key[1])
         k = _mix32(k ^ key[2])
-        k = _mix32(k ^ (0x9E3779B9 * (stream + 1) & _M32))
-        i = self._const(("counter", n), lambda: _mix32(torch.arange(
-            2 * n, dtype=torch.int64, device=self.device)))
-        h = _mix32(k ^ i)
+        h = _mix32(_mix32(k ^ salts).index_select(0, sid) ^ counters)
         u = ((h[0::2] << 21) | (h[1::2] >> 11)).to(torch.float64) \
             * 2.0 ** -53
-        return u.reshape(tuple(shape))
+        return {s: part.reshape(shape) for (s, shape), part
+                in zip(shapes, torch.split(u, sizes))}
 
-    def _randint(self, key, stream: int, shape, high) -> torch.Tensor:
-        """Integers in ``[0, high)`` (``high`` broadcasts, so each gene
-        draws within its own cardinality), as the host strategies'
-        ``randint``: ``floor(u * high)``."""
-        x = torch.floor(self._uniform(key, stream, shape) * high).long()
+    def _uniform(self, key, stream: int, shape) -> torch.Tensor:
+        """float64 uniforms in [0, 1) of ``shape``, 53 bits each, from
+        the carried ``key`` and the draw ``stream``."""
+        return self._draws(key, {stream: shape})[stream]
+
+    @staticmethod
+    def _below(u, high) -> torch.Tensor:
+        """Integers in ``[0, high)`` from uniforms ``u`` (``high``
+        broadcasts, so each gene draws within its own cardinality), as
+        the host strategies' ``randint``: ``floor(u * high)``."""
+        x = torch.floor(u * high).long()
         if isinstance(high, torch.Tensor):
             return torch.minimum(x, high - 1)
         return torch.clamp(x, max=high - 1)
+
+    def _randint(self, key, stream: int, shape, high) -> torch.Tensor:
+        """Integers in ``[0, high)`` of ``shape`` from the draw
+        ``stream`` (:meth:`_below`)."""
+        return self._below(self._uniform(key, stream, shape), high)
 
     # ------------------------------------------------------------------
     # device decode: genome -> (bounds, rank_ids) bucket-relative rows
@@ -491,46 +520,61 @@ class FusedProgram:
     # ------------------------------------------------------------------
     # ES generation step (mirrors strategies.EvolutionStrategy)
     # ------------------------------------------------------------------
-    def _select(self, key, stream: int, fit, n: int):
+    def _select(self, key, stream: int, fit, n: int, drawn=None):
         """Tournament selection: ``n`` winners (indices into ``fit``),
         each the fittest of ``tournament`` uniform draws (the first of
-        equals)."""
-        draws = self._randint(key, stream, (n, self.tournament), len(fit))
+        equals).  ``drawn`` holds the stream's uniforms where the caller
+        drew them already (:meth:`_ask`)."""
+        if drawn is None:
+            drawn = self._draws(key, {stream: (n, self.tournament)})
+        draws = self._below(drawn[stream], len(fit))
         win = torch.argmin(fit[draws], 1)
         return torch.gather(draws, 1, win[:, None])[:, 0]
 
-    def _crossover(self, key, pa, pb):
+    def _crossover(self, key, pa, pb, drawn=None):
         """Factor-swap crossover: each child takes every gene block from
         parent A or B w.p. 1/2."""
-        pick = self._uniform(key, _PICK, (len(pa), self.num_blocks)) < 0.5
-        return torch.where(pick[:, self._gene_block], pa, pb)
+        if drawn is None:
+            drawn = self._draws(key, {_PICK: (len(pa), self.num_blocks)})
+        return torch.where((drawn[_PICK] < 0.5)[:, self._gene_block],
+                           pa, pb)
 
-    def _mutate(self, key, g):
+    def _mutate(self, key, g, drawn=None):
         """Resample each gene w.p. ``mutation_rate`` (uniform over its
         cardinality), plus one forced gene per genome."""
         n, G = g.shape
+        if drawn is None:
+            drawn = self._draws(key, {_FLIP: (n, G), _FORCED: (n,),
+                                      _FRESH: (n, G)})
         genes = self._const(("genes", G),
                             lambda: torch.arange(G, device=self.device))
-        flip = self._uniform(key, _FLIP, (n, G)) < self.mutation_rate
-        forced = self._randint(key, _FORCED, (n,), G)
+        flip = drawn[_FLIP] < self.mutation_rate
+        forced = self._below(drawn[_FORCED], G)
         flip = flip | (genes == forced[:, None])
-        fresh = self._randint(key, _FRESH, (n, G), self._card)
+        fresh = self._below(drawn[_FRESH], self._card)
         return torch.where(flip, fresh, g)
 
     def _ask(self, key, pop, fit):
         """The next ``pop_size`` children of the parents ``(pop, fit)``:
         tournament, crossover at ``crossover_rate``, mutation, and the
-        last ``immigrants`` share replaced by uniform genomes."""
+        last ``immigrants`` share replaced by uniform genomes.  Every
+        draw of the step comes from one :meth:`_draws` pass."""
         P, G = self.pop_size, self.enc.genome_size
-        pa = pop[self._select(key, _TOURNAMENT_A, fit, P)]
-        pb = pop[self._select(key, _TOURNAMENT_B, fit, P)]
-        do_cross = self._uniform(key, _CROSS, (P,)) < self.crossover_rate
-        children = torch.where(do_cross[:, None],
-                               self._crossover(key, pa, pb), pa)
-        children = self._mutate(key, children)
+        requests = {_TOURNAMENT_A: (P, self.tournament),
+                    _TOURNAMENT_B: (P, self.tournament), _CROSS: (P,),
+                    _PICK: (P, self.num_blocks), _FLIP: (P, G),
+                    _FORCED: (P,), _FRESH: (P, G)}
         if self.n_immigrants:
-            imm = self._randint(key, _IMMIGRANT, (self.n_immigrants, G),
-                                self._card)
+            requests[_IMMIGRANT] = (self.n_immigrants, G)
+        drawn = self._draws(key, requests)
+        pa = pop[self._select(key, _TOURNAMENT_A, fit, P, drawn)]
+        pb = pop[self._select(key, _TOURNAMENT_B, fit, P, drawn)]
+        do_cross = drawn[_CROSS] < self.crossover_rate
+        children = torch.where(do_cross[:, None],
+                               self._crossover(key, pa, pb, drawn), pa)
+        children = self._mutate(key, children, drawn)
+        if self.n_immigrants:
+            imm = self._below(drawn[_IMMIGRANT], self._card)
             children = torch.cat([children[:-self.n_immigrants], imm])
         return children
 

@@ -367,6 +367,126 @@ def test_draws_depend_on_seed_and_generation_only(ask_program):
 
 
 # ----------------------------------------------------------------------
+# one hashing pass: the draws of a step are those of a stream alone
+# ----------------------------------------------------------------------
+BIG_KEY = _key((1 << 33) + 5, 11)
+
+
+def _oracle_uniform(key, stream: int, shape):
+    """One stream's draws hashed alone: the key mixed, then the
+    stream's salt, then the stream's own counters."""
+    n = int(np.prod(shape))
+    k = F._mix32(key[0] ^ 0x5BD1E995)
+    k = F._mix32(k ^ key[1])
+    k = F._mix32(k ^ key[2])
+    k = F._mix32(k ^ (0x9E3779B9 * (stream + 1) & F._M32))
+    h = F._mix32(k ^ F._mix32(torch.arange(2 * n, dtype=torch.int64)))
+    u = ((h[0::2] << 21) | (h[1::2] >> 11)).to(torch.float64) * 2.0 ** -53
+    return u.reshape(tuple(shape))
+
+
+def _oracle_randint(key, stream: int, shape, high):
+    x = torch.floor(_oracle_uniform(key, stream, shape) * high).long()
+    if isinstance(high, torch.Tensor):
+        return torch.minimum(x, high - 1)
+    return torch.clamp(x, max=high - 1)
+
+
+def _oracle_ask(fp, key, pop, fit):
+    """``fp``'s step built from :func:`_oracle_uniform`, stream by
+    stream."""
+    P, G = fp.pop_size, fp.enc.genome_size
+
+    def select(stream):
+        draws = _oracle_randint(key, stream, (P, fp.tournament), len(fit))
+        win = torch.argmin(fit[draws], 1)
+        return pop[torch.gather(draws, 1, win[:, None])[:, 0]]
+
+    pa, pb = select(F._TOURNAMENT_A), select(F._TOURNAMENT_B)
+    do_cross = _oracle_uniform(key, F._CROSS, (P,)) < fp.crossover_rate
+    pick = _oracle_uniform(key, F._PICK, (P, fp.num_blocks)) < 0.5
+    crossed = torch.where(pick[:, fp._gene_block], pa, pb)
+    children = torch.where(do_cross[:, None], crossed, pa)
+    flip = _oracle_uniform(key, F._FLIP, (P, G)) < fp.mutation_rate
+    forced = _oracle_randint(key, F._FORCED, (P,), G)
+    flip = flip | (torch.arange(G) == forced[:, None])
+    fresh = _oracle_randint(key, F._FRESH, (P, G), fp._card)
+    children = torch.where(flip, fresh, children)
+    if fp.n_immigrants:
+        imm = _oracle_randint(key, F._IMMIGRANT, (fp.n_immigrants, G),
+                              fp._card)
+        children = torch.cat([children[:-fp.n_immigrants], imm])
+    return children
+
+
+def _ask_case(name: str, immigrants: float):
+    """A pop-1,024 program of the search case ``name`` and parents with
+    tied fitness groups."""
+    design, wl, enc = CASES[name]
+    bm = Sparseloop(design, device=CPU).bucketed_model(wl, enc.bucket)
+    fp = get_fused_program(bm, enc, make_strategy(
+        "es", pop_size=1024, immigrants=immigrants))
+    pop = torch.as_tensor(enc.repair(R.genomes_for(enc, 1024, seed=6)[1]))
+    fit = torch.as_tensor(np.tile(R.SELECT_FITNESS, 1024 // 32))
+    return fp, pop, fit
+
+
+@pytest.mark.parametrize("immigrants", [0.25, 0.0])
+@pytest.mark.parametrize("name", ["conv2_x", "free", "cosearch"])
+def test_ask_draws_bitwise_as_each_stream_alone(monkeypatch, name,
+                                                immigrants):
+    """One whole ``_ask`` draws every stream in one pass, and each
+    stream's uniforms are bitwise those of the stream hashed alone, at a
+    seed above 2**32 and a generation above 0; its children are bitwise
+    those built from the per-stream draws.  Without immigrants the pass
+    asks for no ``_IMMIGRANT`` draws."""
+    fp, pop, fit = _ask_case(name, immigrants)
+    passes = []
+    draws = fp._draws
+
+    def record(key, requests):
+        passes.append((dict(requests), draws(key, requests)))
+        return passes[-1][1]
+
+    monkeypatch.setattr(fp, "_draws", record)
+    with torch.no_grad():
+        got = fp._ask(BIG_KEY, pop, fit)
+    assert len(passes) == 1
+    requests, drawn = passes[0]
+    streams = list(range(F._IMMIGRANT + (immigrants > 0)))
+    assert sorted(drawn) == streams
+    for stream in streams:
+        want = _oracle_uniform(BIG_KEY, stream, requests[stream])
+        assert torch.equal(drawn[stream], want), stream
+    assert torch.equal(got, _oracle_ask(fp, BIG_KEY, pop, fit))
+
+
+@pytest.mark.parametrize("name", ["conv2_x", "free", "cosearch"])
+def test_ask_dispatches_few_ops(name):
+    """One warm ``_ask`` at pop 1,024 dispatches at most 160 non-view
+    aten ops (141 with the key mixed once a step and every stream's
+    counters hashed in one tensor; 840 when each of the eight streams
+    mixed the key and hashed its counters alone)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    fp, pop, fit = _ask_case(name, 0.25)
+    with torch.no_grad():
+        fp._ask(BIG_KEY, pop, fit)             # makes the constants
+        with Count() as c:
+            fp._ask(BIG_KEY, pop, fit)
+    assert 0 < c.ops <= 160, c.ops
+
+
+# ----------------------------------------------------------------------
 # hybrid ES+SGD
 # ----------------------------------------------------------------------
 def test_fused_cosearch_with_hybrid_sgd():
