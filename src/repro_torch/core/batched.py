@@ -1,13 +1,14 @@
-"""Batched mapspace evaluation: the three-step Sparseloop model (dataflow
--> sparse -> micro-architecture) written over a whole *population* of
-loop nests as float64 PyTorch tensors with a leading candidate dimension.
+"""Batched mapspace evaluation: a whole *population* of loop nests
+through the three-step Sparseloop model at once.  The model itself is
+:class:`~.nest_program.NestProgram`; this module lowers nests and
+workloads to its inputs, caches programs by structure and binds each
+layer's and design's data to them.
 
 This is the port of the JAX package's ``core/batched.py``, where the same
-model was one ``jnp`` program under ``vmap`` and ``jit``.  Here every
-per-candidate scalar is a ``(C,)`` tensor, every rank-keyed quantity a
-``(C, R)`` tensor, and the program runs eagerly on one device (the CUDA
-card unless the caller passes ``device="cpu"``).  There is no hand
-kernel: each step is a few hundred small elementwise torch operations.
+model was one ``jnp`` program under ``vmap`` and ``jit``.  Here the
+program runs eagerly on one device (the CUDA card unless the caller
+passes ``device="cpu"``) as a few hundred small elementwise torch
+operations a step; there is no hand kernel.
 
 The lowering contract
 ---------------------
@@ -71,37 +72,25 @@ threads' Python dispatch contends for one interpreter lock).
 from __future__ import annotations
 
 import contextlib
-import copy
 import dataclasses
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import obs
 from . import compile_stats
-from .arch import (COMPUTE_FIELDS, STORAGE_FIELDS, ArchParams,
-                   Architecture, arch_structure, pack_arch_params,
-                   topology_key)
+from .arch import (STORAGE_FIELDS, ArchParams, Architecture,
+                   arch_structure, pack_arch_params, topology_key)
 from .density import (ACTUAL_ID, BatchedDensityUnsupported, DensityCaps,
-                      DensityModel, TracedDensityStats, caps_for_models,
-                      make_density_model)
+                      DensityModel, caps_for_models, make_density_model)
 from .device import PopulationMesh, resolve_device
 from .mapping import Loop, LoopNest
-from .taxonomy import RankFormat, SAFSpec, SAFKind
-from .workload import TensorSpec, Workload
-
-WORD_BITS = 16.0  # metadata accounting word width (matches sparse.py)
-F64 = torch.float64
-#: rank formats that hold every coordinate of a fiber, so their
-#: occupancy needs no density statistic
-_OCCUPANCY_FREE = (RankFormat.U, RankFormat.UB)
-
-
-class BatchedUnsupported(NotImplementedError):
-    """The (design, workload) pair has no batched path; use the scalar
-    engine instead."""
+from .nest_program import F64, BatchedUnsupported, NestProgram, _max
+from .taxonomy import SAFSpec
+from .workload import Workload
 
 
 # ----------------------------------------------------------------------
@@ -114,6 +103,21 @@ def workload_structure(workload: Workload) -> tuple:
     layers with equal structure share programs."""
     return (tuple(workload.rank_bounds), workload.tensors,
             workload.output)
+
+
+class DeviceLeaves(NamedTuple):
+    """A :class:`WorkloadParams` on one device: its four rows as tensors
+    and the host tuple of kind ids the density selection evaluates."""
+
+    rank_bounds: torch.Tensor
+    model_ids: torch.Tensor
+    density_params: torch.Tensor
+    hist: torch.Tensor
+    kinds: tuple
+
+    def tensors(self) -> tuple:
+        return self.rank_bounds, self.model_ids, self.density_params, \
+            self.hist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,32 +146,34 @@ class WorkloadParams:
         return (self.rank_bounds, self.model_ids, self.density_params,
                 self.hist)
 
-    def device_leaves(self, device) -> tuple:
-        """``(rank_bounds, model_ids, density_params, hist, kinds)``:
-        the four rows as tensors on ``device`` (float64, int64 ids),
+    def device_leaves(self, device) -> DeviceLeaves:
+        """The four rows as tensors on ``device`` (float64, int64 ids),
         cached per device because the params are immutable, plus the
         host tuple of kind ids the density selection evaluates."""
         device = resolve_device(device)
-        key = str(device)
-        cache = self.__dict__.get("_device_leaves")
-        if cache is not None and key in cache:
-            return cache[key]
-        with _CACHE_LOCK:
-            cache = self.__dict__.get("_device_leaves")
-            if cache is None:
-                cache = {}
-                object.__setattr__(self, "_device_leaves", cache)
-            if key in cache:
-                return cache[key]
-            rb, mids, dp, hist = self.leaves()
-            cache[key] = (
+        rb, mids, dp, hist = self.leaves()
+        return _device_cached(self, "_device_leaves", device, lambda: (
+            DeviceLeaves(
                 torch.as_tensor(np.asarray(rb, np.float64), device=device),
                 torch.as_tensor(np.asarray(mids, np.int64), device=device),
                 torch.as_tensor(np.asarray(dp, np.float64), device=device),
                 torch.as_tensor(np.asarray(hist, np.float64),
                                 device=device),
-                tuple(int(k) for k in mids))
-            return cache[key]
+                tuple(int(k) for k in mids))))
+
+
+def _device_cached(owner, attr: str, dev, make):
+    """``make()`` on device ``dev``, cached per device in the dict
+    ``attr`` of the immutable params object ``owner``."""
+    key = str(dev)
+    cache = owner.__dict__.get(attr)
+    if cache is not None and key in cache:
+        return cache[key]
+    with _CACHE_LOCK:
+        cache = owner.__dict__.setdefault(attr, {})
+        if key not in cache:
+            cache[key] = make()
+        return cache[key]
 
 
 def _density_models(workload: Workload) -> list[DensityModel]:
@@ -435,139 +441,6 @@ def lower_nests(bucket: TemplateBucket, nests, idxs
     return np.concatenate(all_bounds), np.concatenate(all_ids), order
 
 
-# ----------------------------------------------------------------------
-# Elementwise helpers: per-candidate values are (C,) tensors, but parts
-# of the model stay Python floats where a static structure makes them
-# constant (no spatial loop at a level, an uncompressed format, ...).
-# ----------------------------------------------------------------------
-def _prod(xs):
-    out = 1.0
-    for x in xs:
-        out = out * x
-    return out
-
-
-def _max(a, b):
-    """``max`` of tensors and Python floats.  On the gradient path a tie
-    splits the gradient in half between the two sides, as
-    ``torch.maximum`` and the JAX package's ``jnp.maximum`` do (a Python
-    float side takes its half with it); off it, a float side is one
-    ``torch.clamp``, which would pass the whole gradient at a tie."""
-    if isinstance(a, torch.Tensor):
-        if not isinstance(b, torch.Tensor):
-            if not a.requires_grad:
-                return torch.clamp(a, min=b)
-            b = torch.full_like(a, b)
-        return torch.maximum(a, b)
-    if isinstance(b, torch.Tensor):
-        return _max(b, a)
-    return max(a, b)
-
-
-def _min(a, b):
-    """``min`` of tensors and Python floats, with :func:`_max`'s tie
-    rule."""
-    if isinstance(a, torch.Tensor):
-        if not isinstance(b, torch.Tensor):
-            if not a.requires_grad:
-                return torch.clamp(a, max=b)
-            b = torch.full_like(a, b)
-        return torch.minimum(a, b)
-    if isinstance(b, torch.Tensor):
-        return _min(b, a)
-    return min(a, b)
-
-
-def _where(cond, a, b):
-    """``torch.where`` that also takes a Python bool condition (a static
-    structure, e.g. a format without metadata)."""
-    if not isinstance(cond, torch.Tensor):
-        return a if cond else b
-    return torch.where(cond, a, b)
-
-
-def _suffix_any(mask):
-    """suffix_any[..., j] = any(mask[..., j:]) — the reuse-boundary scan
-    over the slot (last) axis."""
-    return torch.flip(torch.cumsum(torch.flip(mask, (-1,)).to(torch.int32),
-                                   -1), (-1,)) > 0
-
-
-def _union_b(probs_by_leader: dict):
-    keep = 1.0
-    for p in probs_by_leader.values():
-        keep = keep * (1.0 - p)
-    return 1.0 - keep
-
-
-def _merge_b(dst: dict, leader: str, p) -> None:
-    dst[leader] = _max(dst.get(leader, 0.0), p)
-
-
-class _DensityQueries:
-    """The density-statistic queries of one program run, answered in
-    batches.
-
-    Every query is asked (:meth:`ask`) before any is answered: one
-    statistic of one tensor at one tile, under a static key that
-    describes the tile (a Python-number tile is keyed by its value), so
-    a query that repeats is asked once.  :meth:`solve` stacks each
-    (tensor, statistic)'s tiles along a trailing axis into one (C, Q)
-    tensor and evaluates the statistic once on it; :meth:`answer` reads
-    a query's column.  The statistics are elementwise in the tile, so a
-    column holds what the query alone would have given, and a run
-    launches one statistics chain per (tensor, statistic) instead of
-    one per query."""
-
-    def __init__(self):
-        self._tiles: dict = {}      # (tensor, stat) -> {key: tile}
-        self._cols: dict = {}       # (tensor, stat, key) -> (C,) answer
-        self.answered = 0
-        self.evals = 0
-
-    @staticmethod
-    def _key(key, tile):
-        return key if isinstance(tile, torch.Tensor) else float(tile)
-
-    def ask(self, stat: str, tname: str, key, tile) -> None:
-        self._tiles.setdefault((tname, stat), {}).setdefault(
-            self._key(key, tile), tile)
-
-    def solve(self, evaluate, const_row, C: int) -> None:
-        """``evaluate(stat, tname, tiles)`` answers a (C, Q) stack;
-        ``const_row(values)`` is a cached (Q,) tensor of Python-number
-        tiles, so the numbers join the tensor tiles without a fill
-        apiece."""
-        for (tname, stat), tiles in self._tiles.items():
-            held = [(k, t) for k, t in tiles.items()
-                    if isinstance(t, torch.Tensor)]
-            const = [(k, t) for k, t in tiles.items()
-                     if not isinstance(t, torch.Tensor)]
-            parts = []
-            if held:
-                parts.append(torch.stack([t.expand(C) for _, t in held],
-                                         -1))
-            if const:
-                parts.append(const_row(tuple(float(t) for _, t in const))
-                             .expand(C, len(const)))
-            stack = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
-            out = evaluate(stat, tname, stack)
-            self.evals += 1
-            for (key, _), col in zip(held + const, out.unbind(-1)):
-                self._cols[(tname, stat, key)] = col
-
-    def answer(self, stat: str, tname: str, key, tile):
-        self.answered += 1
-        return self._cols[(tname, stat, self._key(key, tile))]
-
-
-@dataclasses.dataclass
-class _Breakdown:
-    actual: object = 0.0
-    gated: object = 0.0
-    skipped: object = 0.0
-
-
 #: metric columns of one evaluation, in the order of the packed
 #: device-to-host copy; per-level ``occupancy`` columns follow them
 _METRICS = ("cycles", "energy_pj", "edp", "valid", "compute_actual",
@@ -584,8 +457,8 @@ _METRICS = ("cycles", "energy_pj", "edp", "valid", "compute_actual",
 # ----------------------------------------------------------------------
 @dataclasses.dataclass
 class _ProgramRecord:
-    """One program: the batched function plus its compile bookkeeping,
-    shared by every facade whose structure key matches."""
+    """One program: the :class:`NestProgram` plus its compile
+    bookkeeping, shared by every facade whose structure key matches."""
 
     kind: str
     fn: object                         # (batch_args, wp) -> metric dict
@@ -609,23 +482,20 @@ _PROGRAM_CACHE: dict = {}
 _PROGRAM_CACHE_CAP = 128
 
 #: guards _PROGRAM_CACHE / _MODEL_CACHE lookup-and-insert, the
-#: per-record compile bookkeeping and the per-device caches (constants,
-#: workload leaves, arch rows), which a service's evaluator thread and
+#: per-record compile bookkeeping and the per-device caches (workload
+#: leaves, arch rows), which a service's evaluator thread and
 #: direct callers may fill at once (an RLock because a facade
 #: constructor under _CACHE_LOCK re-enters _init_program)
 _CACHE_LOCK = threading.RLock()
 
 
-class _TracedNestModel:
-    """Shared three-step program over a static slot *shape*.
-
-    The per-candidate inputs are the slot bounds ``b`` (C, num_slots) and
-    a per-slot rank one-hot ``oh`` — (num_slots, R) for an exact template
-    or (C, num_slots, R) for a bucket.  Everything rank-keyed in the
-    scalar model (tile bounds, relevance, leader windows) becomes a
-    (C, R) tensor masked by ``oh``; unit-bound slots are inert regardless
-    of their rank id, which is what makes bucket padding free.
-    """
+class _ModelFacade:
+    """What :class:`BatchedModel` and :class:`BucketedModel` share: one
+    (design, workload, device)'s data — its :class:`WorkloadParams` and
+    :class:`~.arch.ArchParams` — bound to the shared
+    :class:`NestProgram` of its structure over a static slot *shape*
+    (``slot_levels`` / ``slot_spatial``, outermost first), with the
+    host-to-device copy, the program call and its bookkeeping."""
 
     kind = "program"
 
@@ -648,15 +518,7 @@ class _TracedNestModel:
         self.slot_spatial = tuple(slot_spatial)
         self.num_slots = len(slot_levels)
         self.check_capacity = check_capacity
-        self.level_names = [arch.level(s).name
-                            for s in range(arch.num_levels)]
         self.ranks: tuple[str, ...] = tuple(workload.rank_bounds)
-        self._ridx = {r: i for i, r in enumerate(self.ranks)}
-        self._rel = {
-            t.name: np.asarray([r in t.ranks for r in self.ranks])
-            for t in workload.tensors
-        }
-        self._tidx = {t.name: i for i, t in enumerate(workload.tensors)}
         # this facade's workload inputs (kind ids, parameter vectors,
         # histograms, rank bounds) — the per-layer data bound to the
         # structure-shared program at evaluation time
@@ -666,36 +528,28 @@ class _TracedNestModel:
         # energies, PE counts) — the per-design data bound the same way
         self.arch_params = pack_arch_params(arch)
         self.arch_key = arch_structure(arch)
-        self._stats = TracedDensityStats(self.caps)
-        self._consts: dict = {}
         self._prog: _ProgramRecord | None = None
         self.program_shared = False
 
     # ------------------------------------------------------------------
-    def _init_program(self, token) -> None:
+    def _init_program(self, token, onehot=None) -> None:
         """Fetch or create the shared program.  ``token`` completes the
-        structural identity (the exact template for BatchedModel — its
-        rank one-hot is a constant — or the bucket for BucketedModel).
-
-        The record's function is bound to a *detached* shallow copy of
-        this facade with the per-layer/per-design state stripped: the
-        program only reads structural attributes (slot shape, rel masks,
-        stats, one-hot), so the cache must not pin this facade's
-        workload_params / arch_params for the program's lifetime."""
-        key = (topology_key(self.design.arch, self.safs),
-               workload_structure(self.workload),
+        structural identity: the exact template for BatchedModel, whose
+        rank ``onehot`` is a constant of the program, or the bucket for
+        BucketedModel.  The program is built from the structure the key
+        names, so the cache pins no layer's or design's data."""
+        structure = workload_structure(self.workload)
+        key = (topology_key(self.design.arch, self.safs), structure,
                self.caps, self.check_capacity, token)
         with _CACHE_LOCK:
             rec = _PROGRAM_CACHE.get(key)
             if rec is None:
                 with obs.span("engine.program", kind=self.kind,
                               workload=self.workload.name):
-                    host = copy.copy(self)
-                    host.workload_params = None  # drop the heavy arrays
-                    host.arch_params = None
-                    host._prog = None
-                    host._consts = {}
-                    rec = _ProgramRecord(kind=self.kind, fn=host._batched)
+                    rec = _ProgramRecord(kind=self.kind, fn=NestProgram(
+                        self.safs, structure, self.design.level_names,
+                        self.slot_levels, self.slot_spatial, self.caps,
+                        self.check_capacity, onehot))
                 compile_stats.record_program(self.kind)
                 if len(_PROGRAM_CACHE) >= _PROGRAM_CACHE_CAP:
                     _PROGRAM_CACHE.pop(next(iter(_PROGRAM_CACHE)))
@@ -704,18 +558,6 @@ class _TracedNestModel:
                 compile_stats.record_program_share(rec.kind)
                 self.program_shared = True
             self._prog = rec
-
-    def _const(self, dev, key, make):
-        """A structural constant (mask, index vector) as a tensor on
-        ``dev``, made once per device so evaluations copy nothing."""
-        k = (str(dev), key)
-        out = self._consts.get(k)
-        if out is None:
-            with _CACHE_LOCK:
-                out = self._consts.get(k)
-                if out is None:
-                    out = self._consts[k] = make()
-        return out
 
     def _check_params(self, workload_params: WorkloadParams | None
                       ) -> WorkloadParams:
@@ -739,7 +581,7 @@ class _TracedNestModel:
         return wp
 
     def _bind_params(self, workload_params: WorkloadParams | None
-                     ) -> tuple:
+                     ) -> DeviceLeaves:
         """Validate the workload params and return their leaves on this
         facade's device."""
         return self._check_params(workload_params).device_leaves(
@@ -800,40 +642,50 @@ class _TracedNestModel:
             comp = comp.expand(n, comp.shape[-1])
         return parts, (storage, comp)
 
-    def _run(self, fn, batch_args, wp, shape_key,
-             n: int) -> dict[str, np.ndarray]:
-        """Invoke the program and attribute its wall-clock.
-
-        The first (program, device, shape) sighting is the "compile"
-        call (``note_compile``): its seconds go to
-        ``compile_stats.compile_seconds`` and span ``engine.compile``,
-        every later call at the shape to ``eval_seconds`` and span
-        ``engine.eval``.  The packed device-to-host copy waits for the
-        device, so the interval is host->device->host inclusive."""
-        is_new = self._prog.note_compile((str(self.device),)
-                                         + tuple(shape_key))
+    @contextlib.contextmanager
+    def _timed(self, compile_key, n: int, **span):
+        """Attribute a program call's wall-clock.  The first sighting of
+        ``compile_key`` is the "compile" call (``note_compile``): its
+        seconds go to ``compile_stats.compile_seconds`` and span
+        ``engine.compile``, every later call's to ``eval_seconds`` and
+        span ``engine.eval``.  The packed device-to-host copy waits for
+        the device, so the interval is host->device->host inclusive."""
+        is_new = self._prog.note_compile(compile_key)
         t0 = time.perf_counter()
         with obs.span("engine.compile" if is_new else "engine.eval",
                       kind=self.kind, workload=self.workload.name,
-                      candidates=n, shape=shape_key):
+                      candidates=n, **span):
+            yield
+        _record_seconds(is_new, time.perf_counter() - t0)
+
+    def _run(self, fn, batch_args, wp, shape_key,
+             n: int) -> dict[str, np.ndarray]:
+        """Invoke the program on this facade's device, timed
+        (:meth:`_timed`) per (device, shape)."""
+        with self._timed((str(self.device),) + tuple(shape_key), n,
+                         shape=shape_key):
             packed, layout = _pack(fn(batch_args, wp), n)
             packed = packed.cpu().numpy()
-        _record_seconds(is_new, time.perf_counter() - t0)
         return _unpack(packed, layout)
+
+    def _bind(self, cols, ap, workload_params) -> tuple:
+        """``(n, wp, ap)``: a population's params validated, then the
+        population counted (a rejected one must not inflate the
+        counters)."""
+        n = len(cols[0])
+        wp = self._check_params(workload_params)
+        ap = self._bind_arch(ap, n)
+        compile_stats.record_batched_evals(n, shared=self.program_shared)
+        return n, wp, ap
 
     def _evaluate(self, cols, ap: ArchParams, workload_params,
                   mesh: PopulationMesh | None) -> dict[str, np.ndarray]:
         """The shared body of ``evaluate``: bind, count, then run the
         program on this facade's device, or sharded over ``mesh``."""
-        n = len(cols[0])
         if mesh is not None and mesh.devices[0] != self.device:
             raise ValueError(f"mesh {mesh} does not start at this "
                              f"model's device {self.device}")
-        wp = self._check_params(workload_params)
-        ap = self._bind_arch(ap, n)
-        # count only after the params bound — a rejected population
-        # must not inflate the counters
-        compile_stats.record_batched_evals(n, shared=self.program_shared)
+        n, wp, ap = self._bind(cols, ap, workload_params)
         if mesh is None or mesh.size <= 1:
             parts, ap_rows = self._upload(cols, ap, n)
             return self._run(self._prog.fn, (*parts, ap_rows),
@@ -860,7 +712,6 @@ class _TracedNestModel:
             ap = ap.take(torch.as_tensor(take) if isinstance(
                 ap.storage, torch.Tensor) else take)
         shape_key = ("sharded", m, (total,) + tuple(cols[0].shape[1:]))
-        is_new = self._prog.note_compile(shape_key)
 
         def issue(i):
             dev = mesh.devices[i]
@@ -873,568 +724,11 @@ class _TracedNestModel:
                 return _pack(self._prog.fn((*parts, ap_rows),
                                            wp.device_leaves(dev)), k)
 
-        t0 = time.perf_counter()
-        with obs.span("engine.compile" if is_new else "engine.eval",
-                      kind=self.kind, workload=self.workload.name,
-                      candidates=n, shape=shape_key, shards=m):
+        with self._timed(shape_key, n, shape=shape_key, shards=m):
             packs = [issue(i) for i in range(m)]
             layout = packs[0][1]
             packed = np.concatenate([p.cpu().numpy() for p, _ in packs])
-        _record_seconds(is_new, time.perf_counter() - t0)
         return _unpack(packed[:n], layout)
-
-    # ------------------------------------------------------------------
-    # The batched program.  Mirrors analyze_dataflow / analyze_sparse /
-    # evaluate_microarch line by line; any change to the scalar model
-    # must be reflected here (the parity tests pin it).
-    # ------------------------------------------------------------------
-    def _single(self, b, oh, wp, ap):
-        wl = self.workload
-        levels = self.slot_levels
-        S = self.arch.num_levels
-        R = len(self.ranks)
-        expanded = self.safs.expand_double_sided()
-        zname = wl.output
-        C = b.shape[0]
-        dev = b.device
-
-        # workload data: rank bounds + per-tensor density params
-        rb, mids, dparams, hists, kinds = wp
-        # architecture data: per-candidate level rows (STORAGE_FIELDS
-        # columns, innermost-first) + compute rows (COMPUTE_FIELDS)
-        storage, comp = ap
-        stats = self._stats
-        tidx = self._tidx
-        rel_of = {name: self._const(dev, ("rel", name),
-                                    lambda v=v: torch.as_tensor(
-                                        v, device=dev))
-                  for name, v in self._rel.items()}
-
-        def idx(js):
-            return self._const(dev, ("idx", tuple(js)),
-                               lambda: torch.as_tensor(
-                                   js, dtype=torch.int64, device=dev))
-
-        stat_fns = {"pe": stats.prob_empty, "ed": stats.expected_density,
-                    "mx": stats.max_nnz}
-
-        def density(stat, name, tiles):
-            i = tidx[name]
-            return stat_fns[stat](mids[i], dparams[i], hists[i], tiles,
-                                  kinds=(kinds[i],))
-
-        def total_size(t: TensorSpec):
-            """``t.size(rank_bounds)`` from the bounds vector."""
-            return _prod(
-                sum(rb[self._ridx[r]] for r in dim) - (len(dim) - 1)
-                for dim in t.projection)
-
-        temporal = [j for j in range(self.num_slots)
-                    if not self.slot_spatial[j]]
-        spatial = [j for j in range(self.num_slots) if self.slot_spatial[j]]
-
-        def spatial_at(level):
-            return [j for j in spatial if levels[j] == level]
-
-        def instances_of(level):
-            return _prod(b[:, j] for j in spatial if levels[j] > level)
-
-        def rank_is(j, rel_vec):
-            """Is slot j's rank relevant to ``rel_vec``? (per candidate)"""
-            return (oh[..., j, :] & rel_vec).any(-1)
-
-        def masked_prod(js):
-            """(C, R) per-rank bound product over a static slot subset:
-            the tensor form of the rank-keyed tile-bound dicts."""
-            if not js:
-                return torch.ones(R, dtype=F64, device=dev)
-            sel = idx(js)
-            return torch.where(oh[..., sel, :], b[:, sel, None],
-                               1.0).prod(-2)
-
-        # ---------------- step 1: dataflow (dense traffic) ----------------
-        def fetch_counts(child_level, rel_vec):
-            """(rounds, distinct) tile-fetch counts into child_level; the
-            reuse prefix ends at the innermost relevant *non-unit* loop."""
-            js = [j for j in temporal if levels[j] > child_level]
-            if not js:
-                return 1.0, 1.0
-            sel = idx(js)
-            bs = b[:, sel]
-            rel_arr = (oh[..., sel, :] & rel_vec).any(-1)
-            in_prefix = _suffix_any(rel_arr & (bs > 1))
-            rounds = torch.where(in_prefix, bs, 1.0).prod(-1)
-            distinct = torch.where(in_prefix & rel_arr, bs, 1.0).prod(-1)
-            return rounds, distinct
-
-        # per-level resident-tile bounds as (C, R) tensors — independent
-        # of the tensor, so hoisted out of the per-tensor loop
-        tbv = [masked_prod([j for j in range(self.num_slots)
-                            if levels[j] <= s]) for s in range(S)]
-        ones_r = torch.ones(R, dtype=F64, device=dev)
-
-        def tile_dims(t: TensorSpec, tb):
-            return tuple(
-                sum(tb[..., self._ridx[r]] for r in dim) - (len(dim) - 1)
-                for dim in t.projection)
-
-        def tile_size(t: TensorSpec, tb):
-            return _prod(tile_dims(t, tb))
-
-        total_temporal = _prod(b[:, j] for j in temporal)
-        total_spatial = _prod(b[:, j] for j in spatial)
-        dense_computes = total_temporal * total_spatial
-
-        dense: dict[tuple[str, int], dict] = {}
-        for t in wl.tensors:
-            rel = rel_of[t.name]
-            is_out = t.name == zname
-            for s in range(S):
-                tb = tbv[s]
-                tdims = tile_dims(t, tb)
-                tsize = _prod(tdims)
-                tl = dict(tile_dims=tdims, tile_size=tsize,
-                          fill_words=0.0, partial_fill_words=0.0,
-                          read_words=0.0, read_rounds=1.0,
-                          update_words=0.0, rmw_read_words=0.0,
-                          writeback_words=0.0,
-                          instances=instances_of(s))
-
-                rounds, distinct = fetch_counts(s, rel)
-                if s < S - 1:
-                    if not is_out:
-                        tl["fill_words"] = rounds * tsize
-                    else:
-                        tl["partial_fill_words"] = (rounds - distinct) * tsize
-
-                child = s - 1
-                child_tb = tbv[child] if child >= 0 else ones_r
-                c_rounds, c_distinct = fetch_counts(child, rel)
-                served_tb = child_tb
-                for j in spatial_at(s):
-                    served_tb = served_tb * torch.where(
-                        oh[..., j, :] & rel, b[:, j, None], 1.0)
-                served_words = tile_size(t, served_tb)
-                tl["read_rounds"] = c_rounds
-                if not is_out:
-                    tl["read_words"] = c_rounds * served_words
-                else:
-                    child_tile = tile_size(t, child_tb)
-                    spatial_rel = _prod(
-                        torch.where(rank_is(j, rel), b[:, j], 1.0)
-                        for j in spatial_at(s))
-                    tl["read_words"] = ((c_rounds - c_distinct) * child_tile
-                                        * spatial_rel if s > 0 else 0.0)
-
-                if is_out:
-                    fanout = _prod(b[:, j] for j in spatial_at(s))
-                    if s == 0:
-                        tl["update_words"] = (total_temporal
-                                              * _max(1.0, fanout))
-                    else:
-                        ce, _cd = fetch_counts(s - 1, rel)
-                        child_tile = tile_size(t, tbv[s - 1])
-                        tl["update_words"] = fanout * ce * child_tile
-                    if s < S - 1:
-                        tl["rmw_read_words"] = _max(
-                            0.0, tl["update_words"] - distinct * tsize)
-                        tl["writeback_words"] = rounds * tsize
-                    else:
-                        tl["rmw_read_words"] = _max(
-                            0.0, tl["update_words"]
-                            - total_size(t)
-                            / _max(1.0, tl["instances"]))
-
-                dense[(t.name, s)] = tl
-
-        # ---------------- step 2: sparse filtering ----------------
-        def leader_window_bounds(level, follower_rel):
-            """Per-rank leader-intersection window (dataflow.
-            leader_tile_bounds), with unit loops treated as absent."""
-            bounds = masked_prod([j for j in range(self.num_slots)
-                                  if levels[j] < level])
-            outer = [j for j in temporal if levels[j] >= level]
-            if outer:
-                sel = idx(outer)
-                bs = b[:, sel]
-                rels = (oh[..., sel, :] & follower_rel).any(-1)
-                include = ~_suffix_any(rels & (bs > 1))
-                bounds = bounds * torch.where(
-                    oh[..., sel, :] & include[..., None], bs[..., None],
-                    1.0).prod(-2)
-            return bounds
-
-        # ---- the density queries: every tile a statistic is asked at,
-        # made before any answer is used, then one evaluation per
-        # (tensor, statistic) ----
-        made: dict = {}
-
-        def once(key, make):
-            if key not in made:
-                made[key] = make()
-            return made[key]
-
-        rel_key = {name: tuple(bool(x) for x in v)
-                   for name, v in self._rel.items()}
-
-        def window_dims(lname: str, level, fname: str):
-            """The leader's tile dims in its intersection window at
-            ``level`` for follower ``fname``, and the window's key: one
-            window per (level, follower relevance)."""
-            key = ("window", level, rel_key[fname])
-            bounds = once(key, lambda: leader_window_bounds(
-                level, rel_of[fname]))
-            return key, once((lname,) + key, lambda: tile_dims(
-                wl.tensor(lname), bounds))
-
-        def leader_tile(lname: str, level, fname: str):
-            """A SAF leader's emptiness tile: its window, at least one
-            element."""
-            key, dims = window_dims(lname, level, fname)
-            return key, once((lname, "tile") + key,
-                             lambda: _max(1.0, _prod(dims)))
-
-        def fmt_tiles(fmt, src, dims, tname: str):
-            """Tile ``dims`` (keyed ``src``) in ``fmt``'s ranks: the rank
-            dims, the tile size and each rank's payload (at least one
-            element)."""
-            def make(dims=dims):
-                dims = list(dims) or [1.0]
-                nfr = len(fmt.rank_formats)
-                if len(dims) < nfr:
-                    dims = [1.0] * (nfr - len(dims)) + dims
-                elif len(dims) > nfr:
-                    head = _prod(dims[: len(dims) - nfr + 1])
-                    dims = [head] + dims[len(dims) - nfr + 1:]
-                payload = [_max(1.0, _prod(dims[i + 1:]))
-                           for i in range(len(dims))]
-                return dims, _prod(dims), payload
-            return once((tname, "fmt") + src, make)
-
-        def ask_fmt(fmt, src, dims, tname: str) -> None:
-            _, tsize, payload = fmt_tiles(fmt, src, dims, tname)
-            for i, (rf, sz) in enumerate(zip(fmt.rank_formats, payload)):
-                if rf not in _OCCUPANCY_FREE:
-                    dq.ask("pe", tname, src + (i,), sz)
-                    dq.ask("mx", tname, src, tsize)
-            if fmt.compressed:
-                dq.ask("ed", tname, src, tsize)
-                dq.ask("mx", tname, src, tsize)
-
-        dq = _DensityQueries()
-        for saf in expanded:
-            for lname in saf.leaders:
-                if saf.level == "compute":
-                    dq.ask("ed", lname, None, 1.0)
-                    continue
-                lvl = self.level_names.index(saf.level)
-                dq.ask("pe", lname, *leader_tile(lname, lvl, saf.follower))
-                ask_fmt(self.safs.format_for(saf.level, lname),
-                        *window_dims(lname, lvl, saf.follower), lname)
-                if saf.follower == zname:
-                    for s in range(S):
-                        dq.ask("pe", lname, *leader_tile(lname, s + 1,
-                                                         zname))
-        for t in wl.tensors:
-            for s in range(S):
-                ask_fmt(self.safs.format_for(self.level_names[s], t.name),
-                        ("resident", s), dense[(t.name, s)]["tile_dims"],
-                        t.name)
-        dq.solve(density,
-                 lambda vals: self._const(dev, ("tiles", vals),
-                                          lambda: torch.tensor(
-                                              vals, dtype=F64, device=dev)),
-                 C)
-
-        skip_ev: dict[tuple[str, int], dict] = {}
-        gate_ev: dict[tuple[str, int], dict] = {}
-        comp_skip_ev: dict[str, float] = {}
-        comp_gate_ev: dict[str, float] = {}
-
-        for saf in expanded:
-            if saf.level == "compute":
-                for lname in saf.leaders:
-                    p = 1.0 - dq.answer("ed", lname, None, 1.0)
-                    dst = (comp_skip_ev if saf.kind == SAFKind.SKIP
-                           else comp_gate_ev)
-                    _merge_b(dst, lname, p)
-                continue
-            lvl = self.level_names.index(saf.level)
-            key = (saf.follower, lvl)
-            for lname in saf.leaders:
-                p = dq.answer("pe", lname,
-                              *leader_tile(lname, lvl, saf.follower))
-                dst = skip_ev if saf.kind == SAFKind.SKIP else gate_ev
-                dst.setdefault(key, {})
-                _merge_b(dst[key], lname, p)
-
-        local: dict[tuple[str, int], tuple] = {}
-        for t in wl.tensors:
-            for s in range(S):
-                sk = _union_b(skip_ev.get((t.name, s), {}))
-                gt = _max(
-                    0.0, _union_b({**gate_ev.get((t.name, s), {}),
-                                   **skip_ev.get((t.name, s), {})}) - sk)
-                local[(t.name, s)] = (sk, gt)
-
-        z_round: dict[int, tuple] = {}
-        for s in range(S):
-            r_skip: dict[str, object] = {}
-            r_gate: dict[str, object] = {}
-            for saf in expanded:
-                if saf.follower != zname or saf.level == "compute":
-                    continue
-                for lname in saf.leaders:
-                    p = dq.answer("pe", lname,
-                                  *leader_tile(lname, s + 1, zname))
-                    dst = r_skip if saf.kind == SAFKind.SKIP else r_gate
-                    _merge_b(dst, lname, p)
-            sk = _union_b(r_skip)
-            gt = _max(0.0, _union_b({**r_gate, **r_skip}) - sk)
-            z_round[s] = (sk, gt)
-
-        live_frac: dict[tuple[str, int], object] = {}
-        gated_from_above: dict[tuple[str, int], object] = {}
-        for t in wl.tensors:
-            not_skipped, live = 1.0, 1.0
-            for s in range(S - 1, -1, -1):
-                live_frac[(t.name, s)] = live
-                gated_from_above[(t.name, s)] = not_skipped - live
-                sk, gt = local[(t.name, s)]
-                not_skipped = not_skipped * (1.0 - sk)
-                live = live * _max(0.0, 1.0 - sk - gt)
-            live_frac[(t.name, -1)] = live
-            gated_from_above[(t.name, -1)] = not_skipped - live
-
-        impl_skip0: dict[str, object] = {}
-        impl_gate0: dict[str, object] = {}
-        for t in wl.tensors:
-            for s in range(S):
-                for lname, p in skip_ev.get((t.name, s), {}).items():
-                    _merge_b(impl_skip0, lname, p)
-                for lname, p in gate_ev.get((t.name, s), {}).items():
-                    _merge_b(impl_gate0, lname, p)
-        for lname, p in comp_skip_ev.items():
-            _merge_b(impl_skip0, lname, p)
-        for lname, p in comp_gate_ev.items():
-            _merge_b(impl_gate0, lname, p)
-        c_skip = _union_b(impl_skip0)
-        c_gate = _max(
-            0.0, _union_b({**impl_gate0, **impl_skip0}) - c_skip)
-        c_act = _max(0.0, 1.0 - c_skip - c_gate)
-
-        # ---- format analyzer (formats.analyze_tile_format, batched) ----
-        def fmt_stats(fmt, src, dims, tname: str):
-            dims, tsize, payload = fmt_tiles(fmt, src, dims, tname)
-
-            meta_avg = meta_max = 0.0
-            fibers_avg, fibers_max = 1.0, 1.0
-            for i, (rf, d, sz) in enumerate(
-                    zip(fmt.rank_formats, dims, payload)):
-                coords_avg = fibers_avg * d
-                coords_max = fibers_max * d
-                if rf in _OCCUPANCY_FREE:
-                    # every coordinate is held: no density statistic
-                    occ_avg, occ_max = coords_avg, coords_max
-                else:
-                    p_ne = 1.0 - dq.answer("pe", tname, src + (i,), sz)
-                    n_blocks = _prod(dims[: i + 1])
-                    occ_avg = _min(coords_avg, n_blocks * p_ne)
-                    occ_max = _max(0.0, _min(
-                        coords_max,
-                        torch.ceil(dq.answer("mx", tname, src, tsize)
-                                   / sz)))
-
-                cb = float(fmt.coord_bits)
-                if rf == RankFormat.U:
-                    bits_avg = bits_max = 0.0
-                elif rf in (RankFormat.B, RankFormat.UB):
-                    bits_avg = fibers_avg * d
-                    bits_max = fibers_max * d
-                elif rf in (RankFormat.CP, RankFormat.RLE):
-                    bits_avg = occ_avg * cb
-                    bits_max = occ_max * cb
-                elif rf == RankFormat.UOP:
-                    bits_avg = fibers_avg * 2.0 * cb
-                    bits_max = fibers_max * 2.0 * cb
-                else:  # pragma: no cover
-                    raise BatchedUnsupported(f"rank format {rf}")
-                meta_avg = meta_avg + bits_avg
-                meta_max = meta_max + bits_max
-                fibers_avg, fibers_max = occ_avg, occ_max
-
-            if fmt.is_uncompressed:
-                data_avg = data_max = tsize * 1.0
-            else:
-                data_avg = _min(tsize * 1.0,
-                                dq.answer("ed", tname, src, tsize) * tsize)
-                data_max = _min(tsize * 1.0,
-                                dq.answer("mx", tname, src, tsize))
-            return dict(meta_avg=meta_avg, meta_max=meta_max,
-                        data_avg=data_avg, data_max=data_max,
-                        tile_size=tsize)
-
-        # ---- per-(tensor, level) sparse assembly ----
-        sparse: dict[tuple[str, int], dict] = {}
-        for t in wl.tensors:
-            is_out = t.name == zname
-            for s in range(S):
-                tl = dense[(t.name, s)]
-                fmt = self.safs.format_for(self.level_names[s], t.name)
-                fs = fmt_stats(fmt, ("resident", s), tl["tile_dims"],
-                               t.name)
-
-                live = live_frac[(t.name, s)]
-                g_above = gated_from_above[(t.name, s)]
-                sk, gt = local[(t.name, s)]
-                act_f = live * _max(0.0, 1.0 - sk - gt)
-                gate_f = live * gt + g_above
-                skip_f = _max(0.0, 1.0 - act_f - gate_f)
-                a_act = live
-                a_gate = g_above
-                a_skip = _max(0.0, 1.0 - a_act - a_gate)
-
-                density_scale = (fs["data_avg"]
-                                 / _max(1.0, fs["tile_size"])
-                                 if fmt.compressed else 1.0)
-
-                def bd(dense_words, fr=None,
-                       _fr0=(act_f, gate_f, skip_f), _ds=density_scale):
-                    fa, fg, fsk = fr if fr else _fr0
-                    moved = dense_words * _ds
-                    return _Breakdown(actual=moved * fa, gated=moved * fg,
-                                      skipped=moved * fsk)
-
-                if is_out:
-                    if s == 0:
-                        upd_fr = (c_act, c_gate, c_skip)
-                    else:
-                        live_c = live_frac[(t.name, s - 1)]
-                        g_c = gated_from_above[(t.name, s - 1)]
-                        sk_c, gt_c = z_round[s - 1]
-                        ac = live_c * _max(0.0, 1.0 - sk_c - gt_c)
-                        gc = live_c * gt_c + g_c
-                        upd_fr = (ac, gc, _max(0.0, 1.0 - ac - gc))
-                    updates = bd(tl["update_words"], upd_fr)
-                    distinct_words = (tl["update_words"]
-                                      - tl["rmw_read_words"])
-                    rmw = _max(0.0, updates.actual - distinct_words)
-                    sk_r, gt_r = z_round[s]
-                    wa = live * _max(0.0, 1.0 - sk_r - gt_r)
-                    wg = live * gt_r + g_above
-                    wb_fr = (wa, wg, _max(0.0, 1.0 - wa - wg))
-                    wb = bd(tl["writeback_words"], wb_fr)
-                    pf = bd(tl["partial_fill_words"], wb_fr)
-                    reads = _Breakdown(actual=wb.actual + rmw,
-                                       gated=wb.gated, skipped=wb.skipped)
-                    fills = pf
-                else:
-                    reads = bd(tl["read_words"])
-                    fills = bd(tl["fill_words"], (a_act, a_gate, a_skip))
-                    updates = _Breakdown()
-
-                meta_per_word = (fs["meta_avg"]
-                                 / _max(1e-9, fs["data_avg"])
-                                 / WORD_BITS)
-                has_meta = fs["meta_avg"] > 0
-                meta_reads = _where(
-                    has_meta, (reads.actual + reads.gated) * meta_per_word,
-                    0.0)
-                meta_fills = _where(
-                    has_meta,
-                    (fills.actual + fills.gated
-                     + updates.actual + updates.gated) * meta_per_word,
-                    0.0)
-
-                sparse[(t.name, s)] = dict(
-                    reads=reads, fills=fills, updates=updates,
-                    meta_reads=meta_reads, meta_fills=meta_fills,
-                    occ_max=fs["data_max"] + fs["meta_max"] / WORD_BITS,
-                    instances=tl["instances"])
-
-        # ---- intersection-check overhead (leader metadata scans) ----
-        for saf in expanded:
-            if saf.level == "compute":
-                continue
-            lvl = self.level_names.index(saf.level)
-            follower = wl.tensor(saf.follower)
-            rounds = dense[(saf.follower, lvl)]["read_rounds"]
-            for lname in saf.leaders:
-                lfmt = self.safs.format_for(self.level_names[lvl], lname)
-                ls = fmt_stats(lfmt, *window_dims(lname, lvl, follower.name),
-                               lname)
-                bits = _where(ls["meta_avg"] > 0, ls["meta_avg"],
-                              ls["tile_size"] * 1.0)
-                sparse[(saf.follower, lvl)]["meta_reads"] = (
-                    sparse[(saf.follower, lvl)]["meta_reads"]
-                    + rounds * bits / WORD_BITS)
-
-        obs.metrics.histogram("engine.density_queries").observe(
-            dq.answered)
-        obs.metrics.histogram("engine.density_evals").observe(dq.evals)
-
-        compute_actual = dense_computes * c_act
-        compute_gated = dense_computes * c_gate
-        compute_skipped = dense_computes * c_skip
-
-        # ---------------- step 3: micro-architecture ----------------
-        valid = torch.ones(C, dtype=torch.bool, device=dev)
-        energy = 0.0
-        worst_cycles = 0.0
-        occupancies = []
-        for s in range(S):
-            cap, bw, e_read, e_write, e_gated, e_meta = (
-                storage[:, s, c] for c in range(len(STORAGE_FIELDS)))
-            ra = rg = wa = wg = meta = occ = 0.0
-            inst = 1.0
-            for t in wl.tensors:
-                st = sparse[(t.name, s)]
-                inst = _max(inst, st["instances"])
-                ra = ra + st["reads"].actual
-                rg = rg + st["reads"].gated
-                wa = wa + st["fills"].actual + st["updates"].actual
-                wg = wg + st["fills"].gated + st["updates"].gated
-                meta = meta + st["meta_reads"] + st["meta_fills"]
-                occ = occ + st["occ_max"]
-            occupancies.append(occ * torch.ones(C, dtype=F64, device=dev))
-            if self.check_capacity:
-                # an infinite level passes trivially, matching the
-                # scalar engine's skip-inf-levels behavior
-                valid = valid & (occ <= cap)
-            energy = energy + inst * (
-                ra * e_read + wa * e_write + (rg + wg) * e_gated
-                + meta * e_meta)
-            cyc = (ra + rg + wa + wg + meta) / bw
-            worst_cycles = _max(worst_cycles, cyc)
-
-        pe_inst, pe_mac_e, pe_gated_e, pe_throughput = (
-            comp[:, c] for c in range(len(COMPUTE_FIELDS)))
-        n_inst = torch.minimum(
-            torch.clamp(total_spatial * torch.ones(C, dtype=F64,
-                                                   device=dev), min=1.0),
-            pe_inst)
-        compute_cycles = ((compute_actual + compute_gated)
-                          / (n_inst * pe_throughput))
-        energy = energy + (compute_actual * pe_mac_e
-                           + compute_gated * pe_gated_e)
-        cycles = _max(worst_cycles, compute_cycles)
-
-        def col(x):
-            return x * torch.ones(C, dtype=F64, device=dev)
-
-        return {
-            "cycles": col(cycles),
-            "energy_pj": col(energy),
-            "edp": col(cycles * energy),
-            "valid": valid,
-            "compute_actual": col(compute_actual),
-            "compute_gated": col(compute_gated),
-            "compute_skipped": col(compute_skipped),
-            "dense_computes": col(dense_computes),
-            # per-storage-level words held at peak (innermost-first):
-            # what the capacity check compares against
-            "occupancy": torch.stack(occupancies, 1),
-        }
 
 
 def _pack(res: dict, n: int) -> tuple:
@@ -1474,20 +768,9 @@ def _record_seconds(is_new: bool, dt: float) -> None:
 def _device_arch_rows(ap: ArchParams, dev) -> tuple:
     """An unbatched design's (storage (S, F), compute (4,)) rows on
     ``dev``, copied once per params object and device."""
-    key = str(dev)
-    cache = ap.__dict__.get("_device_rows")
-    if cache is not None and key in cache:
-        return cache[key]
-    with _CACHE_LOCK:
-        cache = ap.__dict__.get("_device_rows")
-        if cache is None:
-            cache = {}
-            object.__setattr__(ap, "_device_rows", cache)
-        if key not in cache:
-            cache[key] = (
-                torch.as_tensor(ap.storage, dtype=F64, device=dev),
-                torch.as_tensor(ap.compute, dtype=F64, device=dev))
-        return cache[key]
+    return _device_cached(ap, "_device_rows", dev, lambda: (
+        torch.as_tensor(ap.storage, dtype=F64, device=dev),
+        torch.as_tensor(ap.compute, dtype=F64, device=dev)))
 
 
 def _check_bounds(bounds, num_slots: int) -> np.ndarray:
@@ -1498,7 +781,7 @@ def _check_bounds(bounds, num_slots: int) -> np.ndarray:
     return bounds
 
 
-class BatchedModel(_TracedNestModel):
+class BatchedModel(_ModelFacade):
     """Batched evaluator for one (design, workload, template, device).
 
     ``evaluate(bounds)`` takes an (C, num_slots) integer array of per-slot
@@ -1520,20 +803,12 @@ class BatchedModel(_TracedNestModel):
             check_capacity=check_capacity, caps=caps, device=device)
         self.template = template
         for r, _, _ in template.slots:
-            if r not in self._ridx:
+            if r not in self.ranks:
                 raise ValueError(f"template rank {r!r} not in workload "
                                  f"ranks {self.ranks}")
-        self._onehot = np.asarray(
+        self._init_program(("template", template), np.asarray(
             [[rr == r for rr in self.ranks] for r, _, _ in template.slots],
-            dtype=bool).reshape(self.num_slots, len(self.ranks))
-        self._init_program(("template", template))
-
-    def _batched(self, args, wp):
-        b, ap = args
-        oh = self._const(b.device, "onehot",
-                         lambda: torch.as_tensor(self._onehot,
-                                                 device=b.device))
-        return self._single(b, oh, wp, ap)
+            dtype=bool).reshape(self.num_slots, len(self.ranks)))
 
     # ------------------------------------------------------------------
     def evaluate(self, bounds, mesh: PopulationMesh | None = None,
@@ -1587,7 +862,7 @@ def _check_rank_ids(bounds, rank_ids, n_ranks: int) -> np.ndarray:
     return rank_ids
 
 
-class BucketedModel(_TracedNestModel):
+class BucketedModel(_ModelFacade):
     """Batched evaluator for one (design, workload, bucket, device).
 
     Like :class:`BatchedModel`, but the slot->rank assignment is
@@ -1617,14 +892,6 @@ class BucketedModel(_TracedNestModel):
                 f"{self.ranks}")
         self.bucket = bucket
         self._init_program(("bucket", bucket))
-
-    def _batched(self, args, wp):
-        b, ids, ap = args
-        ar = self._const(b.device, "arange",
-                         lambda: torch.arange(len(self.ranks),
-                                              device=b.device))
-        oh = ids.long()[..., None] == ar
-        return self._single(b, oh, wp, ap)
 
     # ------------------------------------------------------------------
     def traced_single(self, b, rank_ids, wp_leaves, ap_rows) -> dict:
@@ -1660,10 +927,7 @@ class BucketedModel(_TracedNestModel):
         per-candidate leaves; no cached row is written."""
         bounds = _check_bounds(bounds, self.num_slots)
         rank_ids = _check_rank_ids(bounds, rank_ids, len(self.ranks))
-        n = len(bounds)
-        wp = self._bind_params(workload_params)
-        ap = self._bind_arch(arch_params, n)
-        compile_stats.record_batched_evals(n, shared=self.program_shared)
+        n, wp, ap = self._bind([bounds], arch_params, workload_params)
         (b, ids), (storage, comp) = self._upload([bounds, rank_ids], ap, n)
         storage = storage.detach().clone().requires_grad_()
         comp = comp.detach().clone().requires_grad_()
@@ -1682,7 +946,8 @@ class BucketedModel(_TracedNestModel):
                     "grad_compute": (torch.zeros_like(comp)
                                      if gc is None else gc)}
 
-        return self._run(flat, (b, ids, (storage, comp)), wp,
+        return self._run(flat, (b, ids, (storage, comp)),
+                         wp.device_leaves(self.device),
                          ("arch_grad", metric, surrogate, tau)
                          + tuple(bounds.shape), n)
 

@@ -39,7 +39,7 @@ def fetch_counts(nest: LoopNest, child_level: int,
     distinct = product of only the relevant bounds within that prefix.
 
     This is the scalar reuse-prefix rule the batched engine
-    (core.batched) re-derives per candidate from ``bound > 1`` masks;
+    (core.nest_program) re-derives per candidate from ``bound > 1`` masks;
     keep the two in sync (the parity suite pins them against each other).
     """
     loops = [lp for lp in nest.loops

@@ -72,7 +72,7 @@ from .. import obs
 from ..core import compile_stats
 from ..core.arch import COMPUTE_FIELDS, STORAGE_FIELDS, pack_arch_params
 from ..core.density import CAUSAL_ID, MODEL_KINDS
-from ..core.batched import (BucketedModel, _ProgramRecord,
+from ..core.batched import (BucketedModel, DeviceLeaves, _ProgramRecord,
                             _device_arch_rows, register_cache_clearer,
                             surrogate_loss)
 from .encoding import (COMPUTE_KNOB_LEVEL, CoSearchEncoding,
@@ -253,7 +253,7 @@ class FusedProgram:
         #: the static state, workload leaves and arch rows the step (and
         #: its graph) read; each invocation copies its inputs in
         self._state: dict | None = None
-        self._wp: tuple | None = None
+        self._wp: DeviceLeaves | None = None
         #: sorted names of the density kinds ``_wp`` holds (spans)
         self.density_kinds: tuple = ()
         self._graph = None
@@ -389,11 +389,6 @@ class FusedProgram:
         return {s: part.reshape(shape) for (s, shape), part
                 in zip(shapes, torch.split(u, sizes))}
 
-    def _uniform(self, key, stream: int, shape) -> torch.Tensor:
-        """float64 uniforms in [0, 1) of ``shape``, 53 bits each, from
-        the carried ``key`` and the draw ``stream``."""
-        return self._draws(key, {stream: shape})[stream]
-
     @staticmethod
     def _below(u, high) -> torch.Tensor:
         """Integers in ``[0, high)`` from uniforms ``u`` (``high``
@@ -403,11 +398,6 @@ class FusedProgram:
         if isinstance(high, torch.Tensor):
             return torch.minimum(x, high - 1)
         return torch.clamp(x, max=high - 1)
-
-    def _randint(self, key, stream: int, shape, high) -> torch.Tensor:
-        """Integers in ``[0, high)`` of ``shape`` from the draw
-        ``stream`` (:meth:`_below`)."""
-        return self._below(self._uniform(key, stream, shape), high)
 
     # ------------------------------------------------------------------
     # device decode: genome -> (bounds, rank_ids) bucket-relative rows
@@ -520,32 +510,25 @@ class FusedProgram:
     # ------------------------------------------------------------------
     # ES generation step (mirrors strategies.EvolutionStrategy)
     # ------------------------------------------------------------------
-    def _select(self, key, stream: int, fit, n: int, drawn=None):
-        """Tournament selection: ``n`` winners (indices into ``fit``),
-        each the fittest of ``tournament`` uniform draws (the first of
-        equals).  ``drawn`` holds the stream's uniforms where the caller
-        drew them already (:meth:`_ask`)."""
-        if drawn is None:
-            drawn = self._draws(key, {stream: (n, self.tournament)})
+    def _select(self, stream: int, fit, drawn):
+        """Tournament selection: one winner (an index into ``fit``) per
+        row of ``drawn[stream]``, the fittest of its ``tournament``
+        uniform draws (the first of equals)."""
         draws = self._below(drawn[stream], len(fit))
         win = torch.argmin(fit[draws], 1)
         return torch.gather(draws, 1, win[:, None])[:, 0]
 
-    def _crossover(self, key, pa, pb, drawn=None):
+    def _crossover(self, pa, pb, drawn):
         """Factor-swap crossover: each child takes every gene block from
-        parent A or B w.p. 1/2."""
-        if drawn is None:
-            drawn = self._draws(key, {_PICK: (len(pa), self.num_blocks)})
+        parent A or B w.p. 1/2 (``drawn[_PICK]``)."""
         return torch.where((drawn[_PICK] < 0.5)[:, self._gene_block],
                            pa, pb)
 
-    def _mutate(self, key, g, drawn=None):
+    def _mutate(self, g, drawn):
         """Resample each gene w.p. ``mutation_rate`` (uniform over its
-        cardinality), plus one forced gene per genome."""
-        n, G = g.shape
-        if drawn is None:
-            drawn = self._draws(key, {_FLIP: (n, G), _FORCED: (n,),
-                                      _FRESH: (n, G)})
+        cardinality), plus one forced gene per genome (``drawn[_FLIP]``,
+        ``drawn[_FORCED]``, ``drawn[_FRESH]``)."""
+        G = g.shape[1]
         genes = self._const(("genes", G),
                             lambda: torch.arange(G, device=self.device))
         flip = drawn[_FLIP] < self.mutation_rate
@@ -567,12 +550,12 @@ class FusedProgram:
         if self.n_immigrants:
             requests[_IMMIGRANT] = (self.n_immigrants, G)
         drawn = self._draws(key, requests)
-        pa = pop[self._select(key, _TOURNAMENT_A, fit, P, drawn)]
-        pb = pop[self._select(key, _TOURNAMENT_B, fit, P, drawn)]
+        pa = pop[self._select(_TOURNAMENT_A, fit, drawn)]
+        pb = pop[self._select(_TOURNAMENT_B, fit, drawn)]
         do_cross = drawn[_CROSS] < self.crossover_rate
         children = torch.where(do_cross[:, None],
-                               self._crossover(key, pa, pb, drawn), pa)
-        children = self._mutate(key, children, drawn)
+                               self._crossover(pa, pb, drawn), pa)
+        children = self._mutate(children, drawn)
         if self.n_immigrants:
             imm = self._below(drawn[_IMMIGRANT], self._card)
             children = torch.cat([children[:-self.n_immigrants], imm])
@@ -634,12 +617,13 @@ class FusedProgram:
         set of density kinds changes the step's operations, so it drops
         the captured graph."""
         leaves = self.bm._bind_params(None)
-        if self._wp is None or self._wp[4] != leaves[4]:
-            self._wp = tuple(t.clone() for t in leaves[:4]) + (leaves[4],)
+        if self._wp is None or self._wp.kinds != leaves.kinds:
+            self._wp = DeviceLeaves(*(t.clone() for t in leaves.tensors()),
+                                    leaves.kinds)
             self.density_kinds = tuple(sorted({MODEL_KINDS[k]
-                                               for k in leaves[4]}))
+                                               for k in leaves.kinds}))
             self._graph = None
-        for dst, src in zip(self._wp[:4], leaves[:4]):
+        for dst, src in zip(self._wp.tensors(), leaves.tensors()):
             dst.copy_(src)
         if not self.cosearch:
             storage, comp = _device_arch_rows(self.bm.arch_params,
@@ -699,7 +683,7 @@ class FusedProgram:
         the program evaluates a causal tensor, on
         ``fused.graph_kernels.causal``."""
         obs.metrics.histogram("fused.graph_kernels").observe(kernels)
-        if CAUSAL_ID in wp[4]:
+        if CAUSAL_ID in wp.kinds:
             obs.metrics.histogram("fused.graph_kernels.causal").observe(
                 kernels)
 

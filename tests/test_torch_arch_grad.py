@@ -26,7 +26,7 @@ import torch_reference as R  # noqa: E402
 from repro_torch.core import Sparseloop  # noqa: E402
 from repro_torch.core.arch import (COMPUTE_FIELDS,  # noqa: E402
                                    STORAGE_FIELDS, pack_arch_params)
-from repro_torch.core.batched import _max, _min  # noqa: E402
+from repro_torch.core.nest_program import _max, _min  # noqa: E402
 
 CPU = "cpu"
 #: the finite-difference bar and the batched parity bound

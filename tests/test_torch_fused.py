@@ -278,9 +278,10 @@ def ask_program():
 def test_fused_tournament_as_the_reference(reference, ask_program):
     """A 3-way tournament over 32 distinct fitness values picks rank r
     w.p. ((32 - r) / 32)^3 - ((31 - r) / 32)^3."""
+    drawn = ask_program._draws(
+        _key(11), {F._TOURNAMENT_A: (DRAWS, ask_program.tournament)})
     got = ask_program._select(
-        _key(11), F._TOURNAMENT_A,
-        torch.as_tensor(R.SELECT_FITNESS), DRAWS).numpy()
+        F._TOURNAMENT_A, torch.as_tensor(R.SELECT_FITNESS), drawn).numpy()
     want = reference["draws.select"]
     n = len(R.SELECT_FITNESS)
     rank = np.argsort(np.argsort(R.SELECT_FITNESS))
@@ -295,8 +296,11 @@ def test_fused_crossover_as_the_reference(reference, ask_program):
     card = reference["draws.cardinality"]
     other = (base + 1) % card
     got = ask_program._crossover(
-        _key(12), torch.as_tensor(np.tile(base, (DRAWS, 1))),
-        torch.as_tensor(np.tile(other, (DRAWS, 1)))).numpy()
+        torch.as_tensor(np.tile(base, (DRAWS, 1))),
+        torch.as_tensor(np.tile(other, (DRAWS, 1))),
+        ask_program._draws(_key(12),
+                           {F._PICK: (DRAWS, ask_program.num_blocks)})
+    ).numpy()
     want = reference["draws.crossover"]
     live = card > 1
     block = reference["draws.gene_block"]
@@ -319,8 +323,12 @@ def test_fused_crossover_as_the_reference(reference, ask_program):
 def test_fused_mutation_as_the_reference(reference, ask_program):
     base = reference["draws.base"]
     card = reference["draws.cardinality"]
+    G = len(base)
     got = ask_program._mutate(
-        _key(13), torch.as_tensor(np.tile(base, (DRAWS, 1)))).numpy()
+        torch.as_tensor(np.tile(base, (DRAWS, 1))),
+        ask_program._draws(_key(13), {F._FLIP: (DRAWS, G),
+                                      F._FORCED: (DRAWS,),
+                                      F._FRESH: (DRAWS, G)})).numpy()
     R.same_columns(got, reference["draws.mutate"],
                    "fused mutation vs the reference")
     q = 1 - (1 - RATE) * (1 - 1 / len(card))
@@ -332,9 +340,8 @@ def test_fused_mutation_as_the_reference(reference, ask_program):
 
 def test_fused_immigrants_as_the_reference(reference, ask_program):
     card = reference["draws.conv2_x.cardinality"]
-    got = ask_program._randint(_key(14), F._IMMIGRANT,
-                               (DRAWS, len(card)),
-                               ask_program._card).numpy()
+    u = ask_program._draws(_key(14), {F._IMMIGRANT: (DRAWS, len(card))})
+    got = ask_program._below(u[F._IMMIGRANT], ask_program._card).numpy()
     R.same_columns(got, reference["draws.conv2_x.random"],
                    "fused immigrants vs the reference")
     R.assert_all([R.fit_law(got[:, j], np.full(c, 1 / c))
@@ -356,13 +363,13 @@ def test_fused_generation_as_the_reference(reference, ask_program):
 
 
 def test_draws_depend_on_seed_and_generation_only(ask_program):
-    u = ask_program._uniform(_key(9, 4), F._FLIP, (64,))
-    assert torch.equal(u, ask_program._uniform(_key(9, 4), F._FLIP, (64,)))
+    def uniform(key, stream):
+        return ask_program._draws(key, {stream: (64,)})[stream]
+    u = uniform(_key(9, 4), F._FLIP)
+    assert torch.equal(u, uniform(_key(9, 4), F._FLIP))
     for other in (_key(9, 5), _key(10, 4), _key(9 + (1 << 32), 4)):
-        assert not torch.equal(u, ask_program._uniform(other, F._FLIP,
-                                                       (64,)))
-    assert not torch.equal(u, ask_program._uniform(_key(9, 4), F._FRESH,
-                                                   (64,)))
+        assert not torch.equal(u, uniform(other, F._FLIP))
+    assert not torch.equal(u, uniform(_key(9, 4), F._FRESH))
     assert ((u >= 0) & (u < 1)).all() and u.dtype == torch.float64
 
 

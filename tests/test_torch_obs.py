@@ -214,11 +214,13 @@ def test_a_causal_capture_observes_both_kernel_histograms(monkeypatch):
     and to ``fused.graph_kernels.causal`` where the program's workload
     holds a causal tensor (the capture itself needs a card: the count is
     given here)."""
+    from repro_torch.core.batched import DeviceLeaves
     from repro_torch.core.density import CAUSAL_ID, UNIFORM_ID
     monkeypatch.setattr(obs.metrics, "REGISTRY", obs.metrics.Registry())
-    F.FusedProgram._observe_kernels(2509, (None,) * 4 + ((UNIFORM_ID,) * 2,))
-    F.FusedProgram._observe_kernels(2600, (None,) * 4
-                                    + ((CAUSAL_ID, UNIFORM_ID),))
+    F.FusedProgram._observe_kernels(
+        2509, DeviceLeaves(*(None,) * 4, kinds=(UNIFORM_ID,) * 2))
+    F.FusedProgram._observe_kernels(
+        2600, DeviceLeaves(*(None,) * 4, kinds=(CAUSAL_ID, UNIFORM_ID)))
     snap = obs.metrics.snapshot()
     assert snap["fused.graph_kernels"]["count"] == 2
     causal = snap["fused.graph_kernels.causal"]
