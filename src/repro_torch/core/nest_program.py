@@ -88,13 +88,6 @@ def _where(cond, a, b):
     return torch.where(cond, a, b)
 
 
-def _suffix_any(mask):
-    """suffix_any[..., j] = any(mask[..., j:]) — the reuse-boundary scan
-    over the slot (last) axis."""
-    return torch.flip(torch.cumsum(torch.flip(mask, (-1,)).to(torch.int32),
-                                   -1), (-1,)) > 0
-
-
 class _Events:
     """Elimination probabilities keyed by leader tensor, skips and gates
     apart (``sparse.py``'s ``skip_ev`` / ``gate_ev`` of one site).
@@ -231,8 +224,14 @@ class _DensityQueries:
 class _Slots:
     """The slot geometry of one call: bounds ``b`` (C, num_slots), rank
     one-hot ``oh`` ((num_slots, R), or (C, num_slots, R) for a bucket)
-    and the products the steps take of them.  Unit-bound slots are inert
-    whatever their rank, which makes bucket padding free."""
+    and the products the steps take of them.  Each product is made once
+    for every query that reads it, stacked along an axis of its own: the
+    resident-tile bounds below every level (:meth:`tile_bounds`), and
+    one reuse-prefix pass over every (child level, relevance) pair of
+    the program (:attr:`NestProgram._pairs`), which answers
+    :meth:`fetch_counts` and :meth:`leader_window_bounds` with column
+    views.  Unit-bound slots are inert whatever their rank, which makes
+    bucket padding free."""
 
     def __init__(self, prog: "NestProgram", b, oh):
         self.prog, self.b, self.oh = prog, b, oh
@@ -245,46 +244,66 @@ class _Slots:
                                           v, device=dev))
                     for name, v in prog._rel.items()}
         self._made: dict = {}
+        #: the pairs the reuse-prefix pass scanned, and the fetch-count
+        #: and leader-window reads answered
+        self.scanned = self.reads = 0
 
     def once(self, key, make):
         if key not in self._made:
             self._made[key] = make()
         return self._made[key]
 
-    def idx(self, js):
-        return self.prog._const(self.dev, ("idx", tuple(js)),
-                                lambda: torch.as_tensor(
-                                    js, dtype=torch.int64, device=self.dev))
+    def const(self, name: str):
+        """The program's structural array ``name`` on this call's
+        device."""
+        return self.prog._const(self.dev, name, lambda: torch.as_tensor(
+            getattr(self.prog, name), device=self.dev))
 
-    def masked_prod(self, js):
-        """(C, R) per-rank bound product over a static slot subset:
-        the tensor form of the rank-keyed tile-bound dicts."""
-        if not js:
-            return torch.ones(len(self.prog.ranks), dtype=F64,
-                              device=self.dev)
-        sel = self.idx(js)
-        return torch.where(self.oh[..., sel, :], self.b[:, sel, None],
-                           1.0).prod(-2)
+    def _tiles(self):
+        """(C, S + 1, R): at ``[:, l]`` the per-rank bound product of the
+        slots below level ``l``, the tensor form of the rank-keyed
+        tile-bound dicts."""
+        mask = self.const("_below")[:, :, None] & self.oh.unsqueeze(-3)
+        return torch.where(mask, self.b[:, None, :, None], 1.0).prod(-2)
 
-    def _reuse_prefix(self, js, rel_vec):
-        """Over temporal slots ``js``: their index and bounds, which are
-        relevant to ``rel_vec``, and which lie in the reuse prefix (down
-        to the innermost relevant *non-unit* loop)."""
-        sel = self.idx(js)
-        bs = self.b[:, sel]
-        rel_arr = (self.oh[..., sel, :] & rel_vec).any(-1)
-        return sel, bs, rel_arr, _suffix_any(rel_arr & (bs > 1))
+    def tile_bounds(self, level: int):
+        """(C, R) bounds of the tile below ``level`` (0 to S): the slots
+        at lower levels."""
+        return self.once("tiles", self._tiles)[:, level]
 
-    def fetch_counts(self, child_level, rel_vec):
+    def _prefix(self) -> tuple:
+        """The reuse-prefix scan of every pair at once, over the temporal
+        slots innermost first: their (C, T) bounds and (T, R) or
+        (C, T, R) rank one-hot, and as (P, T) or (C, P, T) masks, the
+        slots above each pair's child level, which of them are relevant
+        to its tensor, and which lie in its reuse prefix (from its outermost slot down to its innermost
+        relevant *non-unit* loop: where a running count of those, innermost
+        first, is nonzero)."""
+        inner = self.const("_inner")
+        bs = self.b[:, inner]
+        above = self.const("_pair_above")
+        oh = self.oh[..., inner, :]
+        rel = (oh.unsqueeze(-3) & self.const("_pair_ranks")).any(-1)
+        in_prefix = (torch.cumsum(rel & (bs[:, None] > 1), -1) > 0) & above
+        self.scanned = len(self.prog._pairs)
+        return bs, oh, above, rel, in_prefix
+
+    def _counts(self) -> tuple:
+        """(C, P) rounds and distinct fetches of every pair."""
+        bs, _, _, rel, in_prefix = self.once("prefix", self._prefix)
+        bs = bs[:, None]
+        return (torch.where(in_prefix, bs, 1.0).prod(-1),
+                torch.where(in_prefix & rel, bs, 1.0).prod(-1))
+
+    def fetch_counts(self, child_level: int, rel_key):
         """``dataflow.fetch_counts``: (rounds, distinct) into
-        ``child_level``."""
-        js = [j for j in self.prog._temporal if self.levels[j] > child_level]
-        if not js:
+        ``child_level`` of a tensor of relevance ``rel_key``."""
+        self.reads += 1
+        p = self.prog._pairs.get((child_level, rel_key))
+        if p is None:           # no temporal slot above child_level
             return 1.0, 1.0
-        _, bs, rel_arr, in_prefix = self._reuse_prefix(js, rel_vec)
-        rounds = torch.where(in_prefix, bs, 1.0).prod(-1)
-        distinct = torch.where(in_prefix & rel_arr, bs, 1.0).prod(-1)
-        return rounds, distinct
+        rounds, distinct = self.once("counts", self._counts)
+        return rounds[:, p], distinct[:, p]
 
     def tile_dims(self, t, tb):
         ridx = self.prog._ridx
@@ -294,19 +313,25 @@ class _Slots:
     def tile_size(self, t, tb):
         return _prod(self.tile_dims(t, tb))
 
-    def leader_window_bounds(self, level, follower_rel):
-        """``dataflow.leader_tile_bounds``, unit loops treated as
-        absent."""
-        bounds = self.masked_prod([j for j in range(self.prog.num_slots)
-                                   if self.levels[j] < level])
-        outer = [j for j in self.prog._temporal if self.levels[j] >= level]
-        if outer:
-            sel, bs, _, in_prefix = self._reuse_prefix(outer, follower_rel)
-            include = ~in_prefix
-            bounds = bounds * torch.where(
-                self.oh[..., sel, :] & include[..., None], bs[..., None],
-                1.0).prod(-2)
-        return bounds
+    def _windows(self):
+        """(C, P, R): each pair's leader window at level ``c + 1``, the
+        tile below that level times the slots above ``c`` outside the
+        pair's reuse prefix."""
+        bs, oh, above, _, in_prefix = self.once("prefix", self._prefix)
+        outer = torch.where(
+            oh.unsqueeze(-3) & (above & ~in_prefix)[..., None],
+            bs[:, None, :, None], 1.0).prod(-2)
+        return self.once("tiles", self._tiles)[
+            :, self.const("_pair_window_level")] * outer
+
+    def leader_window_bounds(self, level: int, follower_key):
+        """``dataflow.leader_tile_bounds`` for a follower of relevance
+        ``follower_key``, unit loops treated as absent."""
+        self.reads += 1
+        p = self.prog._pairs.get((level - 1, follower_key))
+        if p is None:           # no temporal slot at or above level
+            return self.tile_bounds(level)
+        return self.once("windows", self._windows)[:, p]
 
 
 # ----------------------------------------------------------------------
@@ -341,6 +366,7 @@ class NestProgram:
                           if not slot_spatial[j]]
         self._spatial = [j for j in range(self.num_slots) if slot_spatial[j]]
         S = len(self.level_names)
+        self._geometry(S)
         self._formats = {(t.name, s): safs.format_for(self.level_names[s],
                                                       t.name)
                          for t in self.tensors for s in range(S)}
@@ -357,6 +383,30 @@ class NestProgram:
                           "mx": stats.max_nnz}
         self._consts: dict = {}
         self._lock = threading.Lock()
+
+    def _geometry(self, S: int) -> None:
+        """The structural arrays of :class:`_Slots`' stacked products:
+        the slots below each level, and the reuse-prefix pairs, every
+        (child level, relevance key) whose fetch counts have a temporal
+        slot to scan, with their slots in the innermost-first order of
+        the scan."""
+        lv = np.asarray(self.slot_levels, np.int64).reshape(-1)
+        #: _below[l, j]: slot j lies below level l (l = 0 .. S)
+        self._below = np.arange(S + 1)[:, None] > lv
+        self._inner = np.asarray(self._temporal[::-1], np.int64)
+        inner_lv = lv[self._inner]
+        keys = list(dict.fromkeys(self._rel_key.values()))
+        #: (child level, relevance key) -> the pair's column
+        self._pairs = {pair: p for p, pair in enumerate(
+            (c, k) for c in range(-1, S) if (inner_lv > c).any()
+            for k in keys)}
+        levels = np.asarray([c for c, _ in self._pairs], np.int64)
+        self._pair_window_level = levels + 1
+        self._pair_above = inner_lv > levels[:, None]
+        #: (P, T, R): the pair's relevant ranks on each of its slots
+        self._pair_ranks = self._pair_above[..., None] & np.asarray(
+            [k for _, k in self._pairs], bool).reshape(
+                len(levels), 1, len(self.ranks))
 
     def _const(self, dev, key, make):
         """A structural constant (mask, index vector) as a tensor on
@@ -401,6 +451,8 @@ class NestProgram:
         obs.metrics.histogram("engine.density_queries").observe(
             dq.answered)
         obs.metrics.histogram("engine.density_evals").observe(dq.evals)
+        obs.metrics.histogram("engine.prefix_pairs").observe(g.scanned)
+        obs.metrics.histogram("engine.prefix_reads").observe(g.reads)
         storage, comp = ap
         return self._microarch(g, sparse, compute, total_spatial,
                                dense_computes, storage, comp)
@@ -412,20 +464,15 @@ class NestProgram:
         level)]`` the level's dense traffic per instance."""
         S = len(self.level_names)
         b, levels = g.b, g.levels
-        # per-level resident-tile bounds as (C, R) tensors — independent
-        # of the tensor, so hoisted out of the per-tensor loop
-        tbv = [g.masked_prod([j for j in range(self.num_slots)
-                              if levels[j] <= s]) for s in range(S)]
-        ones_r = torch.ones(len(self.ranks), dtype=F64, device=g.dev)
         total_temporal = _prod(b[:, j] for j in self._temporal)
         total_spatial = _prod(b[:, j] for j in self._spatial)
 
         dense: dict[tuple[str, int], dict] = {}
         for t in self.tensors:
-            rel = g.rel[t.name]
+            rel, key = g.rel[t.name], self._rel_key[t.name]
             is_out = t.name == self.output
             for s in range(S):
-                tdims = g.tile_dims(t, tbv[s])
+                tdims = g.tile_dims(t, g.tile_bounds(s + 1))
                 tsize = _prod(tdims)
                 tl = dict(tile_dims=tdims, tile_size=tsize,
                           fill_words=0.0, partial_fill_words=0.0,
@@ -436,7 +483,7 @@ class NestProgram:
                                           if levels[j] > s))
 
                 # ---- fills into this level from the parent ----
-                rounds, distinct = g.fetch_counts(s, rel)
+                rounds, distinct = g.fetch_counts(s, key)
                 if s < S - 1:
                     if not is_out:
                         tl["fill_words"] = rounds * tsize
@@ -444,8 +491,8 @@ class NestProgram:
                         tl["partial_fill_words"] = (rounds - distinct) * tsize
 
                 # ---- reads from this level serving the child below ----
-                child_tb = tbv[s - 1] if s > 0 else ones_r
-                c_rounds, c_distinct = g.fetch_counts(s - 1, rel)
+                child_tb = g.tile_bounds(s)
+                c_rounds, c_distinct = g.fetch_counts(s - 1, key)
                 spatial_here = [j for j in self._spatial if levels[j] == s]
                 served_tb = child_tb
                 for j in spatial_here:
@@ -471,8 +518,8 @@ class NestProgram:
                         tl["update_words"] = (total_temporal
                                               * _max(1.0, fanout))
                     else:
-                        ce, _cd = g.fetch_counts(s - 1, rel)
-                        child_tile = g.tile_size(t, tbv[s - 1])
+                        ce, _cd = g.fetch_counts(s - 1, key)
+                        child_tile = g.tile_size(t, g.tile_bounds(s))
                         tl["update_words"] = fanout * ce * child_tile
                     if s < S - 1:
                         tl["rmw_read_words"] = _max(
@@ -491,8 +538,7 @@ class NestProgram:
         """(key, dims) of a leader's tile in its intersection window at
         ``level`` for follower ``fname``."""
         key = ("window", level, self._rel_key[fname])
-        bounds = g.once(key, lambda: g.leader_window_bounds(
-            level, g.rel[fname]))
+        bounds = g.once(key, lambda: g.leader_window_bounds(level, key[2]))
         return key, g.once((lname,) + key, lambda: g.tile_dims(
             self._tensor[lname], bounds))
 

@@ -9,7 +9,9 @@ on the cases of ``tests/test_batched.py`` and ``tests/test_bucketed.py``
 what the JAX batched engine was itself held to.  Mixed-permutation
 populations are drawn with numpy.  One run's density queries go through
 one statistics chain per (tensor, statistic), counted by dispatched ops
-and by the ``engine.density_*`` histograms.  The ``causal`` kind, which
+and by the ``engine.density_*`` histograms; its fetch counts and leader
+windows come from one reuse-prefix pass, counted the same way and by the
+``engine.prefix_*`` histograms.  The ``causal`` kind, which
 the JAX package lacks, is held to the port's own scalar model (itself
 held to a brute force in ``tests/test_torch_density.py``), and a program
 without a causal tensor never evaluates its forms."""
@@ -496,6 +498,71 @@ def test_density_statistics_dispatch_few_ops_a_run():
         out = bm.traced_single(*args)
     assert out["cycles"].shape == (len(args[0]),)
     assert 0 < c.density <= 150, (c.density, c.total)
+
+
+#: ``_Slots``' functions that scan or multiply slot bounds (its tile
+#: dimensions are the steps' arithmetic, not the slot geometry)
+GEOMETRY = ("_tiles", "tile_bounds", "_prefix", "_counts", "fetch_counts",
+            "_windows", "leader_window_bounds")
+
+
+def test_slot_geometry_dispatches_few_ops_a_run():
+    """One warm ``traced_single`` call answers its 21 fetch-count and 4
+    leader-window reads from one reuse-prefix pass over 9 (child level,
+    relevance) pairs and one stacked tile-bound product: ``_Slots``'
+    geometry dispatches at most 60 non-view aten ops (410 when each read
+    scanned its own pair), and the whole call at most 1,250 (1,597 so)."""
+    import sys
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.geometry = self.total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                self.total += 1
+                f = sys._getframe(1)
+                while f is not None and not f.f_code.co_filename.replace(
+                        "\\", "/").endswith("core/nest_program.py"):
+                    f = f.f_back
+                if f is not None and f.f_code.co_name in GEOMETRY:
+                    self.geometry += 1
+            return out
+
+    bm, args = _scnn_step(pop=64)
+    with torch.no_grad():
+        bm.traced_single(*args)
+        with Count() as c:
+            out = bm.traced_single(*args)
+    assert out["cycles"].shape == (len(args[0]),)
+    assert 0 < c.geometry <= 60, (c.geometry, c.total)
+    assert c.total <= 1250, c.total
+
+
+def test_prefix_pairs_and_reads_are_observed():
+    """Each run observes once the pairs its reuse-prefix pass scanned (9
+    for SCNN's three levels and three tensors) and the fetch-count and
+    leader-window reads it answered, more than the pairs."""
+    from repro_torch import obs
+
+    def totals():
+        snap = obs.metrics.snapshot()
+        return [(snap.get(k, {}).get("count", 0),
+                 snap.get(k, {}).get("sum", 0.0))
+                for k in ("engine.prefix_pairs", "engine.prefix_reads")]
+
+    bm, args = _scnn_step(pop=16)
+    before = totals()
+    with torch.no_grad():
+        bm.traced_single(*args)
+    (pc, ps), (rc, rs) = [(c1 - c0, s1 - s0) for (c0, s0), (c1, s1)
+                          in zip(before, totals())]
+    assert pc == rc == 1
+    assert ps == 9
+    assert rs > ps
 
 
 def test_density_queries_and_evaluations_are_observed():

@@ -3,17 +3,17 @@ records with it.
 
 On the CPU: spans nest per thread, tracing off is one shared no-op, an
 export passes the Chrome-trace schema check, an evaluation's density
-histograms reach the export's metrics, and a fused search's span
-tree is ``search.run`` over ``search.prepare``, one ``search.chunk``
-(each over ``engine.eval`` and ``search.fold``) a chunk, then
-``search.validate``, with no ``device_s`` (no CUDA events on the CPU);
-its ``engine.*`` spans name the density kinds the program holds, and a
-capture of a program that evaluates a causal tensor observes its kernel
-count on ``fused.graph_kernels.causal`` too (the observation, given a
-count, on the CPU).  The ``gpu`` cases run the search as a captured
-graph: ``device_s`` lies in (0, the span's length], each capture
-observes its graph's kernel count once, and tracing changes no number
-of the search's log.
+and reuse-prefix histograms reach the export's metrics, and a fused
+search's span tree is ``search.run`` over ``search.prepare``, one
+``search.chunk`` (each over ``engine.eval`` and ``search.fold``) a
+chunk, then ``search.validate``, with no ``device_s`` (no CUDA events
+on the CPU); its ``engine.*`` spans name the density kinds the program
+holds, and a capture of a program that evaluates a causal tensor
+observes its kernel count on ``fused.graph_kernels.causal`` too (the
+observation, given a count, on the CPU).  The ``gpu`` cases run the
+search as a captured graph: ``device_s`` lies in (0, the span's
+length], each capture observes its graph's kernel count once, and
+tracing changes no number of the search's log.
 """
 import json
 import math
@@ -141,8 +141,8 @@ def test_an_export_passes_the_schema_check(tracer, tmp_path):
 
 def test_density_histograms_in_the_metrics_export(tracer, tmp_path):
     """One evaluation observes the engine's density queries and
-    statistics evaluations; both histograms reach the export's metrics
-    snapshot."""
+    statistics evaluations, and its reuse-prefix pairs and reads; the
+    four histograms reach the export's metrics snapshot."""
     from repro_torch.core import Sparseloop
     from repro_torch.core.mapping import Loop, LoopNest
     nest = LoopNest(loops=(Loop("m", 32, 1), Loop("n", 8, 1),
@@ -162,6 +162,11 @@ def test_density_histograms_in_the_metrics_export(tracer, tmp_path):
     assert queries["kind"] == evals["kind"] == "histogram"
     assert queries["count"] >= 1 and evals["count"] >= 1
     assert queries["max"] > evals["max"] > 0
+    pairs = snap["engine.prefix_pairs"]
+    reads = snap["engine.prefix_reads"]
+    assert pairs["kind"] == reads["kind"] == "histogram"
+    assert pairs["count"] >= 1 and reads["count"] >= 1
+    assert reads["max"] > pairs["max"] > 0
 
 
 # ----------------------------------------------------------------------
