@@ -18,8 +18,8 @@ preset.
 """
 from .arch import Architecture, ComputeLevel, StorageLevel
 from .density import (ActualDataModel, BandedModel, CausalModel,
-                      DenseModel, DensityModel, StructuredModel,
-                      UniformModel, make_density_model)
+                      CausalTopkModel, DenseModel, DensityModel,
+                      StructuredModel, UniformModel, make_density_model)
 from .engine import Design, Evaluation, Sparseloop
 from .mapping import Loop, LoopNest, nest
 from .microarch import EvalResult, evaluate_microarch
@@ -44,8 +44,8 @@ __all__ = [
     "Architecture", "ComputeLevel", "StorageLevel",
     "BatchedModel", "BatchedUnsupported", "NestTemplate",
     "TemplateBucket", "BucketedModel", "BucketingPolicy",
-    "ActualDataModel", "BandedModel", "CausalModel", "DenseModel",
-    "DensityModel",
+    "ActualDataModel", "BandedModel", "CausalModel", "CausalTopkModel",
+    "DenseModel", "DensityModel",
     "StructuredModel", "UniformModel", "make_density_model",
     "Design", "Evaluation", "Sparseloop",
     "Loop", "LoopNest", "nest",

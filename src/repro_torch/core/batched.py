@@ -1085,7 +1085,7 @@ def batched_supported(design, workload: Workload) -> bool:
     """True when every tensor's density model has a traceable form.
 
     Every model of ``density.MODEL_KINDS`` does — actual-data lowers
-    through its tile-occupancy histogram, banded and causal through
+    through its tile-occupancy histogram, banded and the causal kinds through
     closed forms and row-strip scans — so this only rejects unknown
     density specs (and stays as the dispatch guard for future kinds)."""
     try:

@@ -23,10 +23,15 @@ Supported models (Table 4):
   causal           : a one-sided band, the causal attention map: element
                      (i, j) is nonzero iff i - window < j <= i.  Coordinate
                      dependent; exact counts in closed form.
+  causal_topk      : a top-k selection inside the causal band, the map of a
+                     learned sparse attention (DeepSeek's DSA): row i keeps
+                     min(k, n_i) of its n_i band entries, drawn uniformly
+                     without replacement, rows independent.  Coordinate
+                     dependent; hypergeometric rows on the causal grid.
 
 The scalar models (``DensityModel`` and its subclasses) are a copy of the
-JAX package's, except ``causal``, which the JAX package lacks; all
-prob/expectation math is done in log-space (lgamma).
+JAX package's, except ``causal`` and ``causal_topk``, which the JAX
+package lacks; all prob/expectation math is done in log-space (lgamma).
 
 Tensor parametric interface (workload-as-data)
 ----------------------------------------------
@@ -53,8 +58,10 @@ stay shape-stable across layers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Sequence
+import numbers
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -62,10 +69,10 @@ import torch
 #: density-model kind ids (the selection index of TracedDensityStats);
 #: a new kind takes the next id, so the ids of programs built before it
 #: stay as they were
-DENSE_ID, UNIFORM_ID, STRUCTURED_ID, BANDED_ID, ACTUAL_ID, CAUSAL_ID = \
-    range(6)
+DENSE_ID, UNIFORM_ID, STRUCTURED_ID, BANDED_ID, ACTUAL_ID, CAUSAL_ID, \
+    CAUSAL_TOPK_ID = range(7)
 MODEL_KINDS = ("dense", "uniform", "structured", "banded", "actual",
-               "causal")
+               "causal", "causal_topk")
 
 #: fixed length of every model's traced parameter vector
 NUM_DENSITY_PARAMS = 4
@@ -416,6 +423,201 @@ def causal_max_nnz_t(p, h, t, caps: DensityCaps):
     return torch.minimum(ti, _band_count(hh, kk, -off, w - 1 - off)).double()
 
 
+# The causal_topk kind.  Row i's support is the causal band's columns
+# [lo_i, hi_i], lo_i = max(0, i - w + 1), hi_i = min(i, cols - 1), n_i of
+# them; min(k, n_i) are nonzero.  The row misses m given support columns
+# with probability C(n_i - m, k) / C(n_i, k) = exp(A(n_i) - A(n_i - m)),
+# A(x) = sum_{y=k+1..x} log1p(-k / y) = -log C(x, k), and for sure not
+# where n_i - m < min(k, n_i).  On the causal grid a strip's nonempty
+# tiles are a run of columns (the causal kind's); every row of a strip
+# meets the tiles of one sub-run in all their columns (the full tiles,
+# one value a strip), and the rest of the run, the tiles a row's support
+# starts or ends in, are at most two at either end.
+#
+#: exp(-2**_TOPK_CLAMP_BITS) is 0.0 in float64: a row's log-probability
+#: below it is held there, which bounds the fixed-point prefix sums
+_TOPK_CLAMP_BITS = 10
+
+
+def _topk_fix(caps: DensityCaps) -> tuple[int, int]:
+    """``(S, bits)``: the tensor forms hold a log-probability in int64
+    units of ``2**-S``, with every ``|A(x)| <= x ln 2 < 2**bits``, and a
+    sum over ``caps.coord`` rows of values clamped at
+    ``-2**_TOPK_CLAMP_BITS`` below ``2**62``: exact sums over strips."""
+    bits = (caps.coord + 2).bit_length()
+    return 62 - _TOPK_CLAMP_BITS - bits, bits
+
+
+class _TopkRows(NamedTuple):
+    """The candidate-independent rows of a causal_topk tensor."""
+
+    i: torch.Tensor      # (coord,) row index, in the rows' integer type
+    lo: torch.Tensor     # (coord,) first support column
+    hi1: torch.Tensor    # (coord,) one past the last (lo on rows past the
+                         # tensor, so they hold nothing)
+    n: torch.Tensor      # (coord,) support size
+    kc: torch.Tensor     # k held at coord + 1 (every row is wholly kept)
+    w: torch.Tensor      # the window, held at coord + 1
+    cols: torch.Tensor   # the columns, held at coord + 1
+
+
+def _topk_rows_t(p, caps: DensityCaps) -> _TopkRows:
+    """params: [k, rows, cols, window] (the kind's size is ``rows *
+    cols``, so its first slot holds ``k``)."""
+    lim = caps.coord + 1
+    dt = torch.int32 if 4 * (lim + 1) < 2 ** 31 else torch.int64
+    kc, rows, cols, w = (torch.round(p[j]).long().clamp(0, lim)
+                         for j in range(4))
+    i = torch.arange(caps.coord, dtype=dt, device=p.device)
+    lo = torch.clamp(i - (w - 1), min=0)
+    hi1 = torch.where(i < rows, torch.minimum(i, cols - 1) + 1, lo)
+    return _TopkRows(i, lo, hi1, torch.clamp(hi1 - lo, min=0), kc, w, cols)
+
+
+def _topk_miss_table_t(sup: _TopkRows, caps: DensityCaps) -> tuple:
+    """``(nk, aq, aq_nk)``: a row that misses ``m`` of its support
+    columns has the log-probability ``aq_nk - aq[nk - m]`` in units of
+    ``2**-S``, ``nk = max(n, kc)``; ``aq`` is A in int64 at and past
+    ``kc`` and ``2**61`` below it, where the row meets the columns for
+    sure, so the difference clamps to the floor."""
+    S, _ = _topk_fix(caps)
+    y = torch.arange(caps.coord + 2, dtype=torch.float64,
+                     device=sup.i.device)
+    kf = sup.kc.double()
+    a = torch.cumsum(torch.log1p(torch.where(y > kf, -kf / y, 0.0)), 0)
+    aq = torch.where(y >= kf, torch.round(a * 2.0 ** S), 2.0 ** 61).long()
+    nk = torch.maximum(sup.n, sup.kc)
+    return nk, aq, aq[nk]
+
+
+def _topk_grid_t(p, t, caps: DensityCaps):
+    """The causal grid and, along a trailing axis of rows, each row's
+    strip: ``(sup, ti, hh, kk, nr, nc, strip, ends)``, ``sup`` the rows'
+    support.  ``strip`` holds, as seen from every row of a strip, the
+    strip's nonempty run ``[b_lo, b_hi]``, its full tiles (``full``
+    of them from ``bf_lo``) and its partial tiles as four candidate
+    columns with a mask each (``slots``); ``ends`` marks each strip's
+    last row, where a prefix sum over the rows less the one before the
+    strip's first row (:func:`_topk_strip_sum`) is the strip's sum."""
+    ti, tr, tc, nr, nc, rows, _, _, hh, kk = _causal_geometry_t(p, t, caps)
+    sup = _topk_rows_t(p, caps)
+    lim = caps.coord + 1
+
+    def row(x):
+        return x.clamp(max=lim).to(sup.i.dtype)[..., None]
+
+    tr_, tc_, hh_, kk_, last = row(tr), row(tc), row(hh), row(kk), \
+        row(nc - 1)
+    r0 = sup.i // tr_ * tr_
+    b_hi = torch.minimum((r0 + (hh_ - 1)) // tc_, last)
+    b_lo = torch.clamp(-((sup.w + kk_ - 2 - r0) // tc_), min=0)
+    # every row meets b's kk columns: b tc >= the last row's lo and
+    # b tc + kk - 1 <= the first row's hi
+    bf_lo = -(-torch.clamp(r0 + (hh_ - sup.w), min=0) // tc_)
+    bf_hi = torch.minimum((torch.minimum(r0, sup.cols - 1) - (kk_ - 1))
+                          // tc_, last)
+    full = torch.clamp(bf_hi + 1 - bf_lo, min=0)
+    has_full = full > 0
+    # the partial tiles: left and right of the full ones, or the whole
+    # run where there are none (four at most either way)
+    left = torch.where(has_full, bf_lo, b_hi + 1)
+    right = torch.where(has_full, bf_hi, b_lo + 1)
+    slots = ((b_lo, b_lo < left), (b_lo + 1, b_lo + 2 <= left),
+             (b_hi - 1, b_hi - 1 > right), (b_hi, b_hi > right))
+    in_grid = sup.i < row(torch.minimum(nr * tr, rows))
+    ends = (sup.i - r0 == hh_ - 1) & in_grid
+    strip = dict(b_lo=b_lo, b_hi=b_hi, full=full, has_full=has_full,
+                 slots=slots, tc=tc_, kk=kk_,
+                 prev=torch.clamp(r0 - 1, min=0).long(), first=r0 == 0)
+    return sup, ti, hh, kk, nr, nc, strip, ends
+
+
+def _topk_strip_sum(v, strip):
+    """Per row ``v``'s sum over the row's strip up to the row: at the
+    strip's last row, the strip's sum (int64)."""
+    c = torch.cumsum(v, -1)
+    return c - torch.where(strip["first"], 0, c.gather(-1, strip["prev"]))
+
+
+def _topk_overlap(sup: _TopkRows, b, strip):
+    """Each row's support columns inside tile column ``b``."""
+    c0 = b * strip["tc"]
+    return torch.clamp(torch.minimum(sup.hi1, c0 + strip["kk"])
+                       - torch.maximum(sup.lo, c0), min=0)
+
+
+def causal_topk_prob_empty_t(p, h, t, caps: DensityCaps):
+    """params: [k, rows, cols, window].  Per strip, the tiles outside
+    its nonempty run are empty for sure, its full tiles share
+    ``exp(sum_rows A(n_i) - A(n_i - kk))`` and each partial tile is
+    its own sum; the sums are prefix sums over the rows in int64 fixed
+    point, so exact and in one order.  O(caps.coord) per tile."""
+    del h
+    sup, _, _, _, nr, nc, strip, ends = _topk_grid_t(p, t, caps)
+    nk, aq, aq_nk = _topk_miss_table_t(sup, caps)
+    S, _ = _topk_fix(caps)
+    floor = -(1 << (S + _TOPK_CLAMP_BITS))
+
+    def p_miss(idx):
+        """exp of the strip's summed log-probability that each row misses
+        the columns that leave ``idx`` in the A table."""
+        v = torch.clamp(aq_nk - aq[idx], min=floor)
+        return torch.exp(_topk_strip_sum(v, strip).double() * 2.0 ** -S)
+
+    empty = torch.where(strip["has_full"], strip["full"].double()
+                        * p_miss(torch.clamp(nk - strip["kk"], min=0)), 0.0)
+    for b, ok in strip["slots"]:
+        empty = empty + torch.where(
+            ok, p_miss(nk - _topk_overlap(sup, b, strip)), 0.0)
+    run = torch.where(ends, torch.clamp(strip["b_hi"] - strip["b_lo"] + 1,
+                                        min=0), 0).sum(-1)
+    empty = torch.where(ends, empty, 0.0).sum(-1)
+    return ((nr * nc - run).double() + empty) / (nr * nc).double()
+
+
+def causal_topk_expected_density_t(p, h, t, caps: DensityCaps):
+    """``sum_rows min(k, n_i) |S_i inside the grid's columns| / n_i`` in
+    closed form: rows wholly inside the grid's columns give ``min(k,
+    n_i)`` (a prefix sum), and the rest ``G_c (k_i / n_i) - k_i lo_i /
+    n_i`` (two more); the three are candidate-independent tables."""
+    del h
+    ti, tr, tc, nr, nc, rows, cols, w, _, _ = _causal_geometry_t(p, t, caps)
+    sup = _topk_rows_t(p, caps)
+    kr = torch.minimum(sup.n, sup.kc)
+    n = sup.n.double()
+    some = sup.n > 0
+    share = torch.where(some, kr.double() / n, 0.0)
+    lo_share = torch.where(some, kr.double() * sup.lo.double() / n, 0.0)
+    zero = torch.zeros(1, dtype=torch.float64, device=p.device)
+    whole = torch.cat([zero.long(), torch.cumsum(kr, 0)])
+    p1 = torch.cat([zero, torch.cumsum(share, 0)])
+    p2 = torch.cat([zero, torch.cumsum(lo_share, 0)])
+    g_r = torch.minimum(nr * tr, rows)
+    g_c = torch.minimum(nc * tc, cols)
+    e1 = torch.where(g_c >= cols, g_r, torch.minimum(g_r, g_c))
+    e2 = torch.maximum(e1, torch.minimum(g_r, g_c + w - 1))
+    e1, e2 = e1.clamp(0, caps.coord), e2.clamp(0, caps.coord)
+    nnz = (whole[e1].double() + g_c.double() * (p1[e2] - p1[e1])
+           - (p2[e2] - p2[e1]))
+    return nnz / ((nr * nc).double() * ti.double())
+
+
+def causal_topk_max_nnz_t(p, h, t, caps: DensityCaps):
+    """The most nonzeros a draw can put in a tile, ``max_tiles sum_rows
+    min(k, m_i)``: ``hh min(k, kk)`` wherever a strip has a full tile,
+    else the most of its partial tiles'."""
+    del h
+    sup, ti, hh, kk, _, _, strip, ends = _topk_grid_t(p, t, caps)
+    most = torch.where(strip["has_full"],
+                       (hh * torch.minimum(kk, sup.kc))[..., None], 0)
+    for b, ok in strip["slots"]:
+        m = torch.minimum(_topk_overlap(sup, b, strip), sup.kc)
+        most = torch.maximum(most, torch.where(
+            ok, _topk_strip_sum(m, strip), 0))
+    best = torch.where(ends, most, 0).amax(-1)
+    return torch.minimum(ti, best).double()
+
+
 def _actual_index(p, t):
     """Histogram column for a (clamped) tile size; params[0] is the
     valid table length (the concrete array's size)."""
@@ -445,8 +647,8 @@ class TracedDensityStats:
     ``kinds`` names the kind ids that may occur (all of them by default);
     the batched engine passes the one kind its host-side workload params
     hold, so a tensor pays for its own kind only.  Branches whose static
-    capacity is zero (no banded or causal / no actual tensor can ever be
-    selected) are pruned to the trivial dense form."""
+    capacity is zero (no banded or causal kind / no actual tensor can
+    ever be selected) are pruned to the trivial dense form."""
 
     def __init__(self, caps: DensityCaps):
         self.caps = caps
@@ -461,7 +663,8 @@ class TracedDensityStats:
                     band(banded_prob_empty_t, dense_prob_empty_t),
                     actual_prob_empty_t if actual_ok
                     else dense_prob_empty_t,
-                    band(causal_prob_empty_t, dense_prob_empty_t))
+                    band(causal_prob_empty_t, dense_prob_empty_t),
+                    band(causal_topk_prob_empty_t, dense_prob_empty_t))
         self._ed = (dense_expected_density_t, uniform_expected_density_t,
                     structured_expected_density_t,
                     band(banded_expected_density_t,
@@ -469,12 +672,15 @@ class TracedDensityStats:
                     actual_expected_density_t if actual_ok
                     else dense_expected_density_t,
                     band(causal_expected_density_t,
+                         dense_expected_density_t),
+                    band(causal_topk_expected_density_t,
                          dense_expected_density_t))
         self._mx = (dense_max_nnz_t, uniform_max_nnz_t,
                     structured_max_nnz_t,
                     band(banded_max_nnz_t, dense_max_nnz_t),
                     actual_max_nnz_t if actual_ok else dense_max_nnz_t,
-                    band(causal_max_nnz_t, dense_max_nnz_t))
+                    band(causal_max_nnz_t, dense_max_nnz_t),
+                    band(causal_topk_max_nnz_t, dense_max_nnz_t))
 
     @staticmethod
     def _select(branches, kind, params, hist, tile_size, kinds):
@@ -855,13 +1061,15 @@ class CausalModel(DensityModel):
     window: int
     batched = True
     kind_id = CAUSAL_ID
+    _WHOLE = ("rows", "cols", "window")
 
     def __post_init__(self) -> None:
-        for name in ("rows", "cols", "window"):
+        for name in self._WHOLE:
             v = getattr(self, name)
-            if isinstance(v, bool) or int(v) != v or v < 1:
-                raise ValueError(f"causal {name} must be a whole number "
-                                 f">= 1, got {v!r}")
+            if (isinstance(v, bool) or not isinstance(v, numbers.Real)
+                    or int(v) != v or v < 1):
+                raise ValueError(f"{MODEL_KINDS[self.kind_id]} {name} must "
+                                 f"be a whole number >= 1, got {v!r}")
             setattr(self, name, int(v))
 
     @property
@@ -877,15 +1085,19 @@ class CausalModel(DensityModel):
         return (_band_count(self.rows, self.cols, 0, self.w - 1)
                 / self.tensor_size)
 
-    def _grid(self, tile_size) -> tuple[int, ...]:
+    @staticmethod
+    def _grid_of(rows: int, cols: int, tile_size) -> tuple[int, ...]:
         """``(t, tr, tc, nr, nc, hh, kk)`` of a tile size."""
         t = max(1, int(tile_size))
         tr = math.isqrt(t)
         while t % tr:
             tr -= 1
         tc = t // tr
-        return (t, tr, tc, max(1, self.rows // tr), max(1, self.cols // tc),
-                min(tr, self.rows), min(tc, self.cols))
+        return (t, tr, tc, max(1, rows // tr), max(1, cols // tc),
+                min(tr, rows), min(tc, cols))
+
+    def _grid(self, tile_size) -> tuple[int, ...]:
+        return self._grid_of(self.rows, self.cols, tile_size)
 
     @staticmethod
     def _tiles_between(tr: int, tc: int, nr: int, nc: int, lo: int,
@@ -963,6 +1175,129 @@ class CausalModel(DensityModel):
     def max_nnz_b(self, tile_size):
         return causal_max_nnz_t(self._params_t(), None, tile_size,
                                 self._self_caps())
+
+
+@functools.lru_cache(maxsize=16)
+def _topk_rows(rows: int, cols: int, w: int, k: int) -> tuple:
+    """Per row of a causal_topk tensor: ``(lo, hi, n, kept, a)``, the
+    support ``[lo, hi]`` of ``n`` columns, ``kept = min(k, n)`` and the
+    table ``a[x] = A(x) = -log C(x, k)`` (0 up to ``k``)."""
+    i = np.arange(rows)
+    lo = np.maximum(i - w + 1, 0)
+    hi = np.minimum(i, cols - 1)
+    n = np.maximum(hi - lo + 1, 0)
+    y = np.arange(int(n.max(initial=0)) + 1, dtype=np.float64)
+    a = np.cumsum(np.log1p(np.where(y > k, -k / np.maximum(y, 1.0), 0.0)))
+    return lo, hi, n, np.minimum(n, k), a
+
+
+@functools.lru_cache(maxsize=4096)
+def _topk_tile(rows: int, cols: int, w: int, k: int, tile_size: int):
+    """``(prob_empty, expected_density, max_nnz)`` of a causal_topk
+    tensor at one tile size, over the strips and rows of its grid at
+    once (:meth:`CausalTopkModel` has the definitions)."""
+    lo, hi, n, kept, a = _topk_rows(rows, cols, w, k)
+    t, tr, tc, nr, nc, hh, kk = CausalModel._grid_of(rows, cols, tile_size)
+    g = nr * hh
+    # expected density: each row's kept share of its columns in the grid
+    cover = np.maximum(np.minimum(hi[:g], nc * tc - 1) - lo[:g] + 1, 0)
+    nnz = np.sum(np.where(n[:g] > 0, kept[:g] * cover
+                          / np.maximum(n[:g], 1), 0.0))
+    lo, hi, n, kept = (x[:g].reshape(nr, hh) for x in (lo, hi, n, kept))
+    r0 = np.arange(nr)[:, None] * tr
+    # per strip: the nonempty run [b_lo, b_hi], the full tiles [bf_lo,
+    # bf_hi] and the partial ones, two at most at either end of the run
+    b_hi = np.minimum((r0 + hh - 1) // tc, nc - 1)
+    b_lo = np.maximum(-((w + kk - 2 - r0) // tc), 0)
+    bf_lo = -(-np.maximum(r0 + hh - w, 0) // tc)
+    bf_hi = np.minimum((np.minimum(r0, cols - 1) - kk + 1) // tc, nc - 1)
+    full = np.maximum(bf_hi - bf_lo + 1, 0)
+    left = np.where(full > 0, bf_lo, b_hi + 1)
+    right = np.where(full > 0, bf_hi, b_lo + 1)
+
+    def log_miss(m):
+        """The strip's log-probability that its rows miss m columns."""
+        return np.where(m > n - kept, -np.inf,
+                        a[n] - a[np.maximum(n - m, 0)]).sum(1, keepdims=True)
+
+    empty = full * np.exp(log_miss(np.full_like(n, kk)))
+    most = np.where(full > 0, hh * min(k, kk), 0)
+    for b, ok in ((b_lo, b_lo < left), (b_lo + 1, b_lo + 1 < left),
+                  (b_hi - 1, b_hi - 1 > right), (b_hi, b_hi > right)):
+        c0 = b * tc
+        m = np.maximum(np.minimum(hi + 1, c0 + kk) - np.maximum(lo, c0), 0)
+        empty = empty + np.where(ok, np.exp(log_miss(m)), 0.0)
+        most = np.maximum(most, np.where(
+            ok, np.minimum(m, k).sum(1, keepdims=True), 0))
+    run = int(np.maximum(b_hi - b_lo + 1, 0).sum())
+    return ((nr * nc - run + float(empty.sum())) / (nr * nc),
+            float(nnz) / (nr * nc * t), min(t, int(most.max())))
+
+
+@dataclasses.dataclass
+class CausalTopkModel(CausalModel):
+    """A top-``k`` selection inside the causal band, the attention map of
+    a learned sparse attention (DeepSeek-V3.2's DSA: a lightning indexer
+    keeps 2,048 keys a query).  Row ``i``'s support is ``S_i = {j : i -
+    window < j <= i}`` (within the columns), ``n_i = |S_i|``, and exactly
+    ``k_i = min(k, n_i)`` of it is nonzero, drawn uniformly without
+    replacement, the rows independent; ``k >= window`` is the causal map.
+
+    On :class:`CausalModel`'s grid, with ``m_i`` row ``i``'s support
+    columns inside a tile:
+
+    * ``prob_empty``: the mean over tiles of ``prod_rows C(n_i - m_i,
+      k_i) / C(n_i, k_i)``;
+    * ``expected_density``: ``sum_rows k_i |S_i inside the grid's
+      columns| / n_i`` over ``nr * nc * t``;
+    * ``max_nnz``: the most nonzeros any draw can put in a tile, ``max
+      over tiles of sum_rows min(k, m_i)``.
+
+    A strip's tiles outside its nonempty run are empty for sure, the
+    tiles every row meets in all its columns share one value, and the
+    rest are at most two at either end of the run; so a tile size costs
+    O(rows), over the strips and rows at once, memoised per tile size
+    (``_topk_tile``).  The tensor forms (``causal_topk_*_t``) compute
+    the same sums in int64 fixed point."""
+
+    k: int
+    kind_id = CAUSAL_TOPK_ID
+    _WHOLE = ("rows", "cols", "window", "k")
+
+    @property
+    def density(self) -> float:  # type: ignore[override]
+        return (float(_topk_rows(self.rows, self.cols, self.w, self.k)[3]
+                      .sum()) / self.tensor_size)
+
+    def _stats(self, tile_size) -> tuple:
+        return _topk_tile(self.rows, self.cols, self.w, self.k,
+                          max(1, int(tile_size)))
+
+    def prob_empty(self, tile_size: int) -> float:
+        return self._stats(tile_size)[0]
+
+    def expected_density(self, tile_size: int) -> float:
+        return self._stats(tile_size)[1]
+
+    def max_nnz(self, tile_size: int) -> int:
+        return self._stats(tile_size)[2]
+
+    # ---------------- tensor closed forms (core.batched) ----------------
+    def params(self) -> np.ndarray:
+        return np.asarray([self.k, self.rows, self.cols, self.w],
+                          np.float64)
+
+    def prob_empty_b(self, tile_size):
+        return causal_topk_prob_empty_t(self._params_t(), None, tile_size,
+                                        self._self_caps())
+
+    def expected_density_b(self, tile_size):
+        return causal_topk_expected_density_t(self._params_t(), None,
+                                              tile_size, self._self_caps())
+
+    def max_nnz_b(self, tile_size):
+        return causal_topk_max_nnz_t(self._params_t(), None, tile_size,
+                                     self._self_caps())
 
 
 #: tile-occupancy histograms keyed by the identity of the source array:
@@ -1120,4 +1455,10 @@ def make_density_model(spec: object, tensor_size: int) -> DensityModel:
     if kind == "causal":
         return CausalModel(rows=arg["rows"], cols=arg["cols"],
                            window=arg["window"])
+    if kind == "causal_topk":
+        missing = {"rows", "cols", "window", "k"} - set(arg)
+        if missing:
+            raise ValueError(f"causal_topk needs {sorted(missing)}")
+        return CausalTopkModel(rows=arg["rows"], cols=arg["cols"],
+                               window=arg["window"], k=arg["k"])
     raise ValueError(f"unknown density spec {spec!r}")

@@ -75,8 +75,9 @@ class Workload:
     # ("structured", {"n": 2, "m": 4}) or
     # ("banded", {"rows", "cols", "half_band"}) or
     # ("causal", {"rows", "cols", "window"}): (i, j) nonzero iff
-    # i - window < j <= i, or ("actual", np.ndarray).  Missing tensors
-    # are dense.
+    # i - window < j <= i, or ("causal_topk", {"rows", "cols", "window",
+    # "k"}): min(k, n_i) of row i's n_i causal entries, drawn uniformly,
+    # or ("actual", np.ndarray).  Missing tensors are dense.
     densities: dict[str, object] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:

@@ -25,7 +25,8 @@ the card.  On the CPU (``device="cpu"``) the same step runs eagerly.
 
 Measurement: each capture observes the graph's kernel-node count on the
 always-on histogram ``fused.graph_kernels``, and a capture whose program
-evaluates a causal tensor also on ``fused.graph_kernels.causal``; with
+evaluates a causal (causal_topk) tensor also on
+``fused.graph_kernels.causal`` (``fused.graph_kernels.causal_topk``); with
 tracing on (``obs.enable()`` / ``REPRO_TRACE``) each chunk's
 ``engine.eval`` span carries ``device_s``, the replays' time on the
 device's own clock (two CUDA events around them, read after the chunk's
@@ -71,7 +72,7 @@ import torch
 from .. import obs
 from ..core import compile_stats
 from ..core.arch import COMPUTE_FIELDS, STORAGE_FIELDS, pack_arch_params
-from ..core.density import CAUSAL_ID, MODEL_KINDS
+from ..core.density import CAUSAL_ID, CAUSAL_TOPK_ID, MODEL_KINDS
 from ..core.batched import (BucketedModel, DeviceLeaves, _ProgramRecord,
                             _device_arch_rows, register_cache_clearer,
                             surrogate_loss)
@@ -680,12 +681,14 @@ class FusedProgram:
     @staticmethod
     def _observe_kernels(kernels: int, wp) -> None:
         """A capture's kernel count, on ``fused.graph_kernels`` and, where
-        the program evaluates a causal tensor, on
-        ``fused.graph_kernels.causal``."""
+        the program evaluates a causal or causal_topk tensor, on
+        ``fused.graph_kernels.<kind>``."""
         obs.metrics.histogram("fused.graph_kernels").observe(kernels)
-        if CAUSAL_ID in wp.kinds:
-            obs.metrics.histogram("fused.graph_kernels.causal").observe(
-                kernels)
+        for kind in (CAUSAL_ID, CAUSAL_TOPK_ID):
+            if kind in wp.kinds:
+                obs.metrics.histogram(
+                    f"fused.graph_kernels.{MODEL_KINDS[kind]}").observe(
+                        kernels)
 
     # ------------------------------------------------------------------
     def init_carry(self, key) -> tuple:
