@@ -66,6 +66,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .. import obs
+
 #: density-model kind ids (the selection index of TracedDensityStats);
 #: a new kind takes the next id, so the ids of programs built before it
 #: stay as they were
@@ -113,10 +115,13 @@ class DensityCaps:
     Traced programs need static array shapes; coordinate-dependent
     statistics don't have any.  The caps bound them: ``coord`` >= the
     row count of any banded or causal tensor (row-scan length), ``div``
-    >= the isqrt of any such tensor's size (tile-shape divisor scan), and
+    >= the isqrt of any such tensor's size (tile-shape divisor scan),
     ``hist`` >= the size of any actual-data tensor (histogram table
-    length).  Zero means "no tensor of that family" and prunes the
-    corresponding branches of the kind selection entirely.  Caps are part of a
+    length), and ``tiles`` >= the distinct tile sizes a causal_topk
+    tensor can be asked at (the rows of its statistics' table,
+    :func:`_by_distinct_tile`; zero evaluates every tile).  Zero means
+    "no tensor of that family" and prunes the corresponding branches of
+    the kind selection entirely.  Caps are part of a
     compiled program's cache key; :func:`caps_for_models` rounds them up
     to powers of two so layers of similar size land on the same program.
     """
@@ -124,15 +129,17 @@ class DensityCaps:
     coord: int = 0
     div: int = 0
     hist: int = 0
+    tiles: int = 0
 
     def merge(self, other: "DensityCaps") -> "DensityCaps":
         return DensityCaps(coord=max(self.coord, other.coord),
                            div=max(self.div, other.div),
-                           hist=max(self.hist, other.hist))
+                           hist=max(self.hist, other.hist),
+                           tiles=max(self.tiles, other.tiles))
 
     def covers(self, need: "DensityCaps") -> bool:
         return (self.coord >= need.coord and self.div >= need.div
-                and self.hist >= need.hist)
+                and self.hist >= need.hist and self.tiles >= need.tiles)
 
 
 def _pow2_cap(n: int) -> int:
@@ -143,17 +150,32 @@ def caps_for_models(models: Sequence["DensityModel"],
                     round_pow2: bool = True) -> DensityCaps:
     """The smallest :class:`DensityCaps` covering ``models`` (rounded up
     to powers of two by default, so similarly-sized layers share)."""
-    coord = div = hist = 0
+    coord = div = hist = tiles = 0
     for m in models:
         if isinstance(m, (BandedModel, CausalModel)):
             coord = max(coord, m.rows)
             div = max(div, max(1, math.isqrt(max(1, m.rows * m.cols))))
         elif isinstance(m, ActualDataModel):
             hist = max(hist, m.tensor_size)
+        if isinstance(m, CausalTopkModel):
+            tiles = max(tiles, _divisor_products(m.rows, m.cols))
     if round_pow2:
-        coord, div, hist = (_pow2_cap(coord), _pow2_cap(div),
-                            _pow2_cap(hist))
-    return DensityCaps(coord=coord, div=div, hist=hist)
+        coord, div, hist, tiles = (_pow2_cap(coord), _pow2_cap(div),
+                                   _pow2_cap(hist), _pow2_cap(tiles))
+    return DensityCaps(coord=coord, div=div, hist=hist, tiles=tiles)
+
+
+@functools.lru_cache(maxsize=64)
+def _divisor_products(rows: int, cols: int) -> int:
+    """``|{d e : d | rows, e | cols}|``: every tile, leader window and
+    format fiber the engine asks of a tensor whose two dims are single
+    ranks is such a product (a factor gene decodes to a divisor split,
+    and a spatial factor divides its rank), so this bounds the distinct
+    tile sizes of any stack of its statistics."""
+    def divisors(n: int) -> list[int]:
+        low = [d for d in range(1, math.isqrt(n) + 1) if n % d == 0]
+        return low + [n // d for d in low]
+    return len({d * e for d in divisors(rows) for e in divisors(cols)})
 
 
 # ----------------------------------------------------------------------
@@ -618,6 +640,31 @@ def causal_topk_max_nnz_t(p, h, t, caps: DensityCaps):
     return torch.minimum(ti, best).double()
 
 
+def _by_distinct_tile(fn, p, t, caps: DensityCaps):
+    """``fn(p, None, t, caps)`` (a ``causal_topk_*_t``) evaluated once a
+    distinct tile size: the stack sorted, each sorted tile's run counted,
+    the first of each run gathered into a sorted static table of
+    ``U = min(caps.tiles, t.numel())`` rows (padded with the largest
+    size), ``fn`` on the table, and each tile's answer gathered from its
+    row (``searchsorted``).  A tile whose row does not hold its own size
+    answers NaN, never a neighbour's value: the stack held more than
+    ``caps.tiles`` sizes.  Static shapes, no host synchronisation;
+    ``caps.tiles`` 0 evaluates every tile."""
+    tt = _tile(p, t)
+    flat = tt.reshape(-1)
+    U = min(caps.tiles, flat.numel())
+    if not U:
+        return fn(p, None, tt, caps)
+    s = torch.sort(flat).values
+    run = torch.cumsum(torch.cat([torch.ones_like(s[:1], dtype=torch.bool),
+                                  s[1:] != s[:-1]]), 0) - 1
+    row = torch.arange(U, dtype=run.dtype, device=s.device)
+    table = s[torch.searchsorted(run, row).clamp(max=flat.numel() - 1)]
+    vals = fn(p, None, table, caps)
+    at = torch.searchsorted(table, flat).clamp(max=U - 1)
+    return torch.where(table[at] == flat, vals[at], math.nan).view(tt.shape)
+
+
 def _actual_index(p, t):
     """Histogram column for a (clamped) tile size; params[0] is the
     valid table length (the concrete array's size)."""
@@ -648,7 +695,10 @@ class TracedDensityStats:
     the batched engine passes the one kind its host-side workload params
     hold, so a tensor pays for its own kind only.  Branches whose static
     capacity is zero (no banded or causal kind / no actual tensor can
-    ever be selected) are pruned to the trivial dense form."""
+    ever be selected) are pruned to the trivial dense form.  The
+    ``causal_topk`` branches evaluate once a distinct tile size of the
+    stack (:func:`_by_distinct_tile`, ``caps.tiles`` rows) and observe
+    ``engine.topk_tiles`` / ``engine.topk_table_rows``."""
 
     def __init__(self, caps: DensityCaps):
         self.caps = caps
@@ -658,13 +708,28 @@ class TracedDensityStats:
         def band(fn, dense):
             return (lambda p, h, t: fn(p, h, t, caps)) if band_ok else dense
 
+        def topk(fn, dense):
+            """``fn`` once a distinct tile size, each evaluation's tiles
+            and table rows observed"""
+            if not band_ok:
+                return dense
+
+            def stat(p, h, t):
+                out = _by_distinct_tile(fn, p, t, caps)
+                n = out.numel()
+                obs.metrics.histogram("engine.topk_tiles").observe(n)
+                obs.metrics.histogram("engine.topk_table_rows").observe(
+                    min(caps.tiles, n) or n)
+                return out
+            return stat
+
         self._pe = (dense_prob_empty_t, uniform_prob_empty_t,
                     structured_prob_empty_t,
                     band(banded_prob_empty_t, dense_prob_empty_t),
                     actual_prob_empty_t if actual_ok
                     else dense_prob_empty_t,
                     band(causal_prob_empty_t, dense_prob_empty_t),
-                    band(causal_topk_prob_empty_t, dense_prob_empty_t))
+                    topk(causal_topk_prob_empty_t, dense_prob_empty_t))
         self._ed = (dense_expected_density_t, uniform_expected_density_t,
                     structured_expected_density_t,
                     band(banded_expected_density_t,
@@ -673,14 +738,14 @@ class TracedDensityStats:
                     else dense_expected_density_t,
                     band(causal_expected_density_t,
                          dense_expected_density_t),
-                    band(causal_topk_expected_density_t,
+                    topk(causal_topk_expected_density_t,
                          dense_expected_density_t))
         self._mx = (dense_max_nnz_t, uniform_max_nnz_t,
                     structured_max_nnz_t,
                     band(banded_max_nnz_t, dense_max_nnz_t),
                     actual_max_nnz_t if actual_ok else dense_max_nnz_t,
                     band(causal_max_nnz_t, dense_max_nnz_t),
-                    band(causal_topk_max_nnz_t, dense_max_nnz_t))
+                    topk(causal_topk_max_nnz_t, dense_max_nnz_t))
 
     @staticmethod
     def _select(branches, kind, params, hist, tile_size, kinds):
@@ -1287,17 +1352,28 @@ class CausalTopkModel(CausalModel):
         return np.asarray([self.k, self.rows, self.cols, self.w],
                           np.float64)
 
+    def _self_caps(self) -> DensityCaps:
+        return dataclasses.replace(
+            super()._self_caps(),
+            tiles=_divisor_products(self.rows, self.cols))
+
+    def _by_tile(self, fn, tile_size):
+        """``fn`` once a distinct tile size, the table as large as the
+        stack: a caller may ask any sizes, not only the engine's."""
+        p = self._params_t()
+        tt = _tile(p, tile_size)
+        caps = self._self_caps()
+        return _by_distinct_tile(fn, p, tt, dataclasses.replace(
+            caps, tiles=max(caps.tiles, tt.numel())))
+
     def prob_empty_b(self, tile_size):
-        return causal_topk_prob_empty_t(self._params_t(), None, tile_size,
-                                        self._self_caps())
+        return self._by_tile(causal_topk_prob_empty_t, tile_size)
 
     def expected_density_b(self, tile_size):
-        return causal_topk_expected_density_t(self._params_t(), None,
-                                              tile_size, self._self_caps())
+        return self._by_tile(causal_topk_expected_density_t, tile_size)
 
     def max_nnz_b(self, tile_size):
-        return causal_topk_max_nnz_t(self._params_t(), None, tile_size,
-                                     self._self_caps())
+        return self._by_tile(causal_topk_max_nnz_t, tile_size)
 
 
 #: tile-occupancy histograms keyed by the identity of the source array:

@@ -14,6 +14,7 @@ dispatch the ops they did before it (PERF.md §5), and only a program
 that evaluates the kind observes ``fused.graph_kernels.causal_topk``.
 """
 import collections
+import dataclasses
 import importlib.util
 import math
 import sys
@@ -46,9 +47,13 @@ BF = _load(REFERENCE / "causal_topk_mask.py")
 def _answers(m, tiles):
     """Each statistic at ``tiles`` from the scalar model, the tensor forms
     behind ``TracedDensityStats`` (the kind a tensor, every kind
-    evaluated and selected, the caps rounded up) and the wrappers."""
+    evaluated and selected, the caps rounded up, their bound on distinct
+    tile sizes widened to the sizes asked: the engine asks only the
+    tensor's ``d * e``, these tests every size) and the wrappers."""
     scalar = [tuple(getattr(m, s)(t) for s in STATS) for t in tiles]
-    stats = port.TracedDensityStats(port.caps_for_models([m]))
+    caps = port.caps_for_models([m])
+    stats = port.TracedDensityStats(dataclasses.replace(
+        caps, tiles=max(caps.tiles, len(tiles))))
     params = torch.as_tensor(m.params())
     tt = torch.tensor(tiles, dtype=torch.float64)
     kind = torch.tensor(m.kind_id)
@@ -160,6 +165,209 @@ def test_the_scalar_and_tensor_forms_agree_at_the_dsa_cells_size():
         for t, g, e in zip(tiles, got[form], got["scalar"]):
             assert abs(g[0] - e[0]) <= 1e-13 and abs(g[1] - e[1]) <= 1e-13 \
                 and int(g[2]) == e[2], (form, t, g, e)
+
+
+# ----------------------------------------------------------------------
+# once a distinct tile size: the table and its bound
+# ----------------------------------------------------------------------
+def _products(rows, cols):
+    """``{d * e : d | rows, e | cols}`` by brute force."""
+    def divisors(n):
+        return [d for d in range(1, n + 1) if n % d == 0]
+    return sorted({d * e for d in divisors(rows) for e in divisors(cols)})
+
+
+#: (rows, cols, window, k): attn_av's P and a small tensor
+TABLE_CASES = [(32768, 32768, 32768, 2048), (24, 40, 9, 4)]
+
+
+def _stacks(rows, cols):
+    """(C, Q) stacks of the tensor's tile sizes with repeats: drawn from
+    the products, all of them (as many as the unrounded bound), and the
+    products with other sizes up to the rounded bound exactly."""
+    sizes = _products(rows, cols)
+    g = torch.Generator().manual_seed(rows + cols)
+    drawn = torch.tensor(sizes, dtype=torch.float64)[
+        torch.randint(len(sizes), (8, 6), generator=g)]
+    every = torch.tensor(sizes * 2, dtype=torch.float64).view(2, -1)
+    cap = port.caps_for_models([port.CausalTopkModel(
+        rows=rows, cols=cols, window=1, k=1)]).tiles
+    others = [t for t in range(1, 10 * cap) if t not in set(sizes)]
+    rounded = torch.tensor(sizes + others[:cap - len(sizes)],
+                           dtype=torch.float64).flip(0).repeat(3, 1)
+    return {"drawn": drawn, "every": every, "rounded": rounded}
+
+
+@pytest.mark.parametrize("case", TABLE_CASES, ids=lambda c: f"{c[0]}x{c[1]}")
+def test_the_table_answers_as_the_direct_forms(case):
+    """Each statistic once a distinct tile size equals the direct forms
+    on every tile of the stack to 1e-13 relative (the strips' sums are
+    int64; only ``prob_empty``'s float sum over rows may take another
+    order with the shape), through ``_by_distinct_tile`` and through
+    ``TracedDensityStats``, at a stack whose distinct sizes equal the
+    bound exactly too."""
+    rows, cols, window, k = case
+    m = port.CausalTopkModel(rows=rows, cols=cols, window=window, k=k)
+    caps = port.caps_for_models([m])
+    exact = port.caps_for_models([m], round_pow2=False)
+    stats = port.TracedDensityStats(caps)
+    params = torch.as_tensor(m.params())
+    kind = torch.tensor(m.kind_id)
+    for label, tiles in _stacks(rows, cols).items():
+        bound = exact if label == "every" else caps
+        assert len(set(tiles.view(-1).tolist())) <= bound.tiles
+        for name in STATS:
+            fn = getattr(port, f"causal_topk_{name}_t")
+            direct = fn(params, None, tiles, caps)
+            for got in (port._by_distinct_tile(fn, params, tiles, bound),
+                        getattr(stats, name)(kind, params, None, tiles)
+                        if bound is caps else direct):
+                assert got.shape == tiles.shape
+                torch.testing.assert_close(got, direct, rtol=1e-13, atol=0,
+                                           msg=f"{label} {name}")
+
+
+@pytest.mark.parametrize("rows, cols", [(1, 1), (1, 40), (13, 29), (24, 40),
+                                        (36, 36), (97, 60), (2048, 2048)])
+def test_the_bound_counts_the_products_of_divisors(rows, cols):
+    """``caps_for_models`` gives a causal_topk tensor ``|{d * e}|``
+    (rounded up to a power of two by default), and only that kind: a
+    causal tensor of the same shape needs no table."""
+    want = len(_products(rows, cols))
+    m = port.CausalTopkModel(rows=rows, cols=cols, window=rows, k=1)
+    assert port.caps_for_models([m], round_pow2=False).tiles == want
+    assert m._self_caps().tiles == want
+    assert port.caps_for_models([m]).tiles == port._pow2_cap(want)
+    assert port.caps_for_models(
+        [port.CausalModel(rows=rows, cols=cols, window=rows)]).tiles == 0
+
+
+def test_the_bound_is_merged_covered_and_enforced():
+    """32 at attn_av's 32,768 x 32,768 (2**0 .. 2**30); ``merge`` and
+    ``covers`` carry the bound, a positional ``DensityCaps`` keeps its
+    meaning, and ``pack_workload_params`` refuses caps short of it."""
+    from repro_torch.core import matmul
+    from repro_torch.core.batched import common_caps, pack_workload_params
+    n = 32768
+    dsa = port.CausalTopkModel(rows=n, cols=n, window=n, k=2048)
+    assert port.caps_for_models([dsa], round_pow2=False).tiles == 31
+    assert port.caps_for_models([dsa]) == port.DensityCaps(
+        coord=n, div=n, hist=0, tiles=32)
+    assert port.DensityCaps(1, 2, 3) == port.DensityCaps(
+        coord=1, div=2, hist=3, tiles=0)
+    a, b = port.DensityCaps(coord=8, tiles=4), port.DensityCaps(tiles=16)
+    assert a.merge(b) == port.DensityCaps(coord=8, tiles=16)
+    assert a.merge(b).covers(b) and not a.covers(b)
+    wl = matmul(24, 40, 8, densities={
+        "A": ("causal_topk", {"rows": 24, "cols": 40, "window": 9, "k": 4}),
+        "B": ("dense", None)})
+    caps = common_caps([wl])
+    assert caps.tiles == 32
+    assert pack_workload_params(wl, caps).caps == caps
+    assert pack_workload_params(wl, dataclasses.replace(caps, tiles=28))
+    with pytest.raises(ValueError, match="do not cover"):
+        pack_workload_params(wl, dataclasses.replace(caps, tiles=27))
+
+
+def test_a_stack_past_the_bound_answers_nan_where_the_table_cannot_hold():
+    """More distinct sizes than the bound: the table holds the smallest,
+    so those tiles answer exactly and every larger one NaN (never a
+    neighbour's value); caps without a bound evaluate every tile."""
+    m = port.CausalTopkModel(rows=24, cols=40, window=9, k=4)
+    params = torch.as_tensor(m.params())
+    caps = port.caps_for_models([m])
+    tiles = torch.tensor([[960, 1, 7, 2, 960], [3, 7, 480, 5, 1]],
+                         dtype=torch.float64)
+    held = tiles <= 3                  # the 3 smallest of 7 distinct sizes
+    for name in STATS:
+        fn = getattr(port, f"causal_topk_{name}_t")
+        direct = fn(params, None, tiles, caps)
+        got = port._by_distinct_tile(fn, params, tiles,
+                                     dataclasses.replace(caps, tiles=3))
+        assert torch.equal(got[held], direct[held]), name
+        assert bool(got[~held].isnan().all()), (name, got)
+        unbound = dataclasses.replace(caps, tiles=0)
+        assert torch.equal(port._by_distinct_tile(fn, params, tiles,
+                                                  unbound), direct)
+        stats = port.TracedDensityStats(unbound)
+        assert torch.equal(getattr(stats, name)(
+            torch.tensor(m.kind_id), params, None, tiles), direct)
+
+
+def test_a_search_asks_the_kind_only_at_products_of_divisors(monkeypatch):
+    """A small fused CPU search of a layer built like attn_av (T 2,048,
+    k 128, 512 columns, the DSA cell's design and spatial split): every
+    tile a ``causal_topk`` evaluation is asked lies in ``{d * e}``, no
+    stack holds more sizes than the bound, the histograms observe each
+    evaluation's tiles and table rows, and no intermediate of the kind
+    holds more than ``U x caps.coord`` elements."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import matmul
+    from repro_torch.core.batched import clear_caches
+    from repro_torch.core.mapper import MapspaceConstraints
+    from repro_torch.search import SearchConfig, run_search
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from portbench.harness.config import Config
+
+    class Largest(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(o, torch.Tensor):
+                    self.numel = max(self.numel, o.numel())
+            return out
+
+    T, k = 2048, 128
+    sizes = set(_products(T, T))
+    seen = []
+    real = port._by_distinct_tile
+
+    def spy(fn, p, t, caps):
+        with Largest() as big:
+            out = real(fn, p, t, caps)
+        seen.append((t.clone(), caps, big.numel, out))
+        return out
+    monkeypatch.setattr(port, "_by_distinct_tile", spy)
+    monkeypatch.setattr(obs.metrics, "REGISTRY", obs.metrics.Registry())
+    cfg = Config.load("deepseek-v3.2-dsa-stc")
+    design = cfg.program_design()
+    wl = matmul(T, T, 512, name="attn_av", densities={
+        "A": ("causal_topk", {"rows": T, "cols": T, "window": T, "k": k}),
+        "B": ("dense", None)})
+    clear_caches()
+    try:
+        res = run_search(design, wl,
+                         MapspaceConstraints(spatial=cfg.spatial(design),
+                                             budget=64),
+                         strategy="es", key=5, generations=2, pop_size=32,
+                         fused=True, config=SearchConfig(fused_chunk=1),
+                         device="cpu", mesh=None)
+    finally:
+        clear_caches()
+    assert res.best is not None and res.best.result.valid
+    assert seen
+    caps = seen[0][1]
+    assert caps.tiles == port._pow2_cap(len(sizes)) == 32
+    for tiles, c, largest, out in seen:
+        asked = set(tiles.view(-1).tolist())
+        assert asked <= sizes, sorted(asked - sizes)
+        assert len(asked) <= c.tiles
+        assert bool(torch.isfinite(out).all())
+        rows = min(c.tiles, tiles.numel())
+        assert largest <= max(rows * c.coord, tiles.numel()), \
+            (largest, rows, c.coord)
+    snap = obs.metrics.snapshot()
+    told, rows = snap["engine.topk_tiles"], snap["engine.topk_table_rows"]
+    assert told["count"] == rows["count"] == len(seen)
+    assert told["sum"] == sum(t.numel() for t, *_ in seen)
+    assert rows["sum"] == sum(min(c.tiles, t.numel()) for t, c, *_ in seen)
+    assert rows["max"] <= 32 < told["min"]
 
 
 # ----------------------------------------------------------------------
@@ -310,3 +518,28 @@ def test_cuda_the_tensor_forms_equal_the_cpus():
         cpu = fn(params, None, tiles, caps)
         card = fn(params.cuda(), None, tiles.cuda(), caps).cpu()
         torch.testing.assert_close(card, cpu, rtol=1e-13, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_the_table_equals_the_direct_forms_at_the_cells_stacks():
+    """On the card, a generation's stacks at attn_av's P and the cell's
+    caps ((1,024, 6) and (1,024, 4) tiles of its 31 sizes): each
+    statistic through ``TracedDensityStats``' table equals the direct
+    forms to 1e-13 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 32768
+    m = port.CausalTopkModel(rows=n, cols=n, window=n, k=2048)
+    caps = port.caps_for_models([m])
+    stats = port.TracedDensityStats(caps)
+    params = torch.as_tensor(m.params()).cuda()
+    g = torch.Generator().manual_seed(31)
+    for name, q in zip(STATS, (6, 4, 4)):
+        tiles = (2.0 ** torch.randint(0, 31, (1024, q), generator=g)).cuda()
+        direct = getattr(port, f"causal_topk_{name}_t")(params, None, tiles,
+                                                        caps)
+        got = getattr(stats, name)(m.kind_id, params, None, tiles)
+        torch.testing.assert_close(got, direct, rtol=1e-13, atol=0,
+                                   msg=name)
+        del direct
+        torch.cuda.empty_cache()
