@@ -17,8 +17,8 @@ population of mappings as PyTorch tensors, on the CUDA card unless
 preset.
 """
 from .arch import Architecture, ComputeLevel, StorageLevel
-from .density import (ActualDataModel, BandedModel, CausalModel,
-                      CausalTopkModel, DenseModel, DensityModel,
+from .density import (ActualDataModel, BandedModel, CausalBlockTopkModel,
+                      CausalModel, CausalTopkModel, DenseModel, DensityModel,
                       StructuredModel, UniformModel, make_density_model)
 from .engine import Design, Evaluation, Sparseloop
 from .mapping import Loop, LoopNest, nest
@@ -44,7 +44,8 @@ __all__ = [
     "Architecture", "ComputeLevel", "StorageLevel",
     "BatchedModel", "BatchedUnsupported", "NestTemplate",
     "TemplateBucket", "BucketedModel", "BucketingPolicy",
-    "ActualDataModel", "BandedModel", "CausalModel", "CausalTopkModel",
+    "ActualDataModel", "BandedModel", "CausalBlockTopkModel", "CausalModel",
+    "CausalTopkModel",
     "DenseModel", "DensityModel",
     "StructuredModel", "UniformModel", "make_density_model",
     "Design", "Evaluation", "Sparseloop",

@@ -28,10 +28,17 @@ Supported models (Table 4):
                      min(k, n_i) of its n_i band entries, drawn uniformly
                      without replacement, rows independent.  Coordinate
                      dependent; hypergeometric rows on the causal grid.
+  causal_block_topk: a top-k selection of whole key blocks inside the
+                     causal map, the map of a block-sparse attention
+                     (MiniMax-M3's MSA): row i keeps its first ``init``
+                     and last ``local`` causal blocks of ``block`` columns
+                     and min(k, n_i) of its n_i other causal blocks,
+                     drawn uniformly without replacement, rows
+                     independent.  Hypergeometric rows over blocks.
 
 The scalar models (``DensityModel`` and its subclasses) are a copy of the
-JAX package's, except ``causal`` and ``causal_topk``, which the JAX
-package lacks; all prob/expectation math is done in log-space (lgamma).
+JAX package's, except the three causal kinds, which the JAX package
+lacks; all prob/expectation math is done in log-space (lgamma).
 
 Tensor parametric interface (workload-as-data)
 ----------------------------------------------
@@ -72,9 +79,9 @@ from .. import obs
 #: a new kind takes the next id, so the ids of programs built before it
 #: stay as they were
 DENSE_ID, UNIFORM_ID, STRUCTURED_ID, BANDED_ID, ACTUAL_ID, CAUSAL_ID, \
-    CAUSAL_TOPK_ID = range(7)
+    CAUSAL_TOPK_ID, CAUSAL_BLOCK_TOPK_ID = range(8)
 MODEL_KINDS = ("dense", "uniform", "structured", "banded", "actual",
-               "causal", "causal_topk")
+               "causal", "causal_topk", "causal_block_topk")
 
 #: fixed length of every model's traced parameter vector
 NUM_DENSITY_PARAMS = 4
@@ -117,8 +124,9 @@ class DensityCaps:
     row count of any banded or causal tensor (row-scan length), ``div``
     >= the isqrt of any such tensor's size (tile-shape divisor scan),
     ``hist`` >= the size of any actual-data tensor (histogram table
-    length), and ``tiles`` >= the distinct tile sizes a causal_topk
-    tensor can be asked at (the rows of its statistics' table,
+    length), and ``tiles`` >= the distinct tile sizes a causal_topk or
+    causal_block_topk tensor can be asked at (the rows of its
+    statistics' table,
     :func:`_by_distinct_tile`; zero evaluates every tile).  Zero means
     "no tensor of that family" and prunes the corresponding branches of
     the kind selection entirely.  Caps are part of a
@@ -152,12 +160,12 @@ def caps_for_models(models: Sequence["DensityModel"],
     to powers of two by default, so similarly-sized layers share)."""
     coord = div = hist = tiles = 0
     for m in models:
-        if isinstance(m, (BandedModel, CausalModel)):
+        if isinstance(m, (BandedModel, CausalModel, CausalBlockTopkModel)):
             coord = max(coord, m.rows)
             div = max(div, max(1, math.isqrt(max(1, m.rows * m.cols))))
         elif isinstance(m, ActualDataModel):
             hist = max(hist, m.tensor_size)
-        if isinstance(m, CausalTopkModel):
+        if isinstance(m, (CausalTopkModel, CausalBlockTopkModel)):
             tiles = max(tiles, _divisor_products(m.rows, m.cols))
     if round_pow2:
         coord, div, hist, tiles = (_pow2_cap(coord), _pow2_cap(div),
@@ -640,6 +648,222 @@ def causal_topk_max_nnz_t(p, h, t, caps: DensityCaps):
     return torch.minimum(ti, best).double()
 
 
+# The causal_block_topk kind.  Row i's causal columns [0, hi_i], hi_i =
+# min(i, cols - 1), fall in blocks of B columns, 0 .. nb_i - 1, nb_i =
+# hi_i // B + 1.  The first ``init`` and the last ``local`` are forced
+# (nonzero); of the other n_i, the candidates init .. lq_i - 1, lq_i =
+# max(nb_i - local, init), min(k, n_i) are kept.  A row whose tile
+# columns meet a forced block meets the tile for sure; one whose tile
+# columns meet m candidate blocks misses it with causal_topk's
+# probability C(n_i - m, k) / C(n_i, k), blocks in place of columns.  On
+# the causal grid a strip's tiles past its last row's diagonal are empty
+# for sure; a tile that starts in the init blocks, or reaches the first
+# row's local blocks, is nonempty for sure; every other tile from the
+# init blocks up to the first row's last candidate block and its last
+# causal column (interior) meets the same candidate blocks in all its
+# columns in every row of the strip, m_lo or m_lo + 1 of them as its
+# columns fall on the blocks.  What is left are the tiles of the
+# diagonal with local 0, two at most (hh, kk <= tc).
+#
+#: block, init and local share the params' last slot, ``block + init
+#: 2**_BLOCK_BITS + local 2**(_BLOCK_BITS + _END_BITS)``, so the vector
+#: keeps the four slots of the JAX package's kinds
+_BLOCK_BITS, _END_BITS = 24, 12
+
+
+class _BlockRows(NamedTuple):
+    """The candidate-independent rows of a causal_block_topk tensor
+    (``i``, ``n`` and ``kc`` as :class:`_TopkRows`' for the miss table)."""
+
+    i: torch.Tensor         # (coord,) row index, in the rows' integer type
+    hi: torch.Tensor        # (coord,) last causal column; -1 past the rows
+    lq: torch.Tensor        # (coord,) first local block that is no init one
+    lq_col: torch.Tensor    # (coord,) its first column (past hi if none)
+    n: torch.Tensor         # (coord,) candidate blocks
+    kc: torch.Tensor        # k held at coord + 1
+    B: torch.Tensor         # the block, held in [1, 2 coord + 3]
+    init: torch.Tensor      # init, held at coord + 1
+    init_col: torch.Tensor  # init B, held at coord + 1
+    local: torch.Tensor     # local, held at coord + 1
+    cols: torch.Tensor      # the columns, held at coord + 1
+
+
+def _block_rows_t(p, caps: DensityCaps) -> _BlockRows:
+    """params: [k, rows, cols, block + init 2**24 + local 2**36].  The
+    rows' integer type is int32 where every column a strip's tiles reach
+    (below ``5 lim + 1``) fits."""
+    lim = caps.coord + 1
+    dt = torch.int32 if 8 * (lim + 1) < 2 ** 31 else torch.int64
+    kc, rows, cols, g = (torch.round(p[j]).long() for j in range(4))
+    # a block past 2 lim holds every row's columns, as it would at 2 lim
+    B = torch.remainder(g, 1 << _BLOCK_BITS).clamp(1, 2 * lim + 1)
+    init = torch.remainder(_floordiv(g, 1 << _BLOCK_BITS), 1 << _END_BITS)
+    local = _floordiv(g, 1 << (_BLOCK_BITS + _END_BITS))
+    kc, rows, cols, init, local, init_col = (
+        x.clamp(0, lim).to(dt) for x in (kc, rows, cols, init, local,
+                                          init.clamp(max=lim) * B))
+    B = B.to(dt)
+    i = torch.arange(caps.coord, dtype=dt, device=p.device)
+    hi = torch.where(i < rows, torch.minimum(i, cols - 1), -1)
+    nb = _floordiv(hi, B) + 1
+    lq = torch.maximum(nb - local, init)
+    return _BlockRows(i, hi, lq, torch.minimum(lq, nb) * B,
+                      torch.clamp(nb - local - init, min=0), kc, B, init,
+                      init_col, local, cols)
+
+
+def _block_grid_t(p, t, caps: DensityCaps):
+    """The causal grid and, along a trailing axis of rows, each row's
+    strip, as :func:`_topk_grid_t`'s: ``strip`` holds the strip's run
+    ``[0, b_hi]``, its interior tiles ``[bi_lo, bi_lo + nint)`` (of
+    ``m_lo`` candidate blocks, ``cnt_hi`` of them of one more), the first
+    of its two partial tiles ``s0`` and ``mu = min(B, kk)``, the most
+    columns a block gives a tile."""
+    ti, tr, tc, nr, nc, rows, cols = _band_grid_t(p, t, caps,
+                                                  _scan_dtype(caps))
+    hh, kk = torch.minimum(tr, rows), torch.minimum(tc, cols)
+    sup = _block_rows_t(p, caps)
+    lim = caps.coord + 1
+
+    def row(x, most=lim):
+        return x.clamp(max=most).to(sup.i.dtype)[..., None]
+
+    # kk past 2 lim still passes every column and block end (<= 2 lim)
+    tr_, tc_, hh_, kk_, last = row(tr), row(tc), row(hh), \
+        row(kk, 2 * lim + 1), row(nc - 1)
+    B = sup.B
+    r0 = sup.i // tr_ * tr_
+    hi0 = torch.minimum(r0, sup.cols - 1)
+    b_hi = torch.minimum((r0 + (hh_ - 1)) // tc_, last)
+    bi_lo = -(-sup.init_col // tc_)
+    bi_hi = torch.minimum(torch.minimum(
+        (torch.clamp(hi0 // B + 1 - sup.local, min=0) * B - kk_) // tc_,
+        (hi0 - kk_ + 1) // tc_), last)
+    nint = torch.clamp(bi_hi - bi_lo + 1, min=0)
+    m_lo = (kk_ - 1) // B + 1
+    # up to each tile column b, the columns that meet m_lo + 1 blocks
+    c0 = torch.arange(caps.coord, dtype=torch.int64,
+                      device=p.device) * tc_.long()
+    up = torch.cumsum((c0 + (kk_ - 1)) // B - c0 // B + 1 - m_lo, -1)
+    top = caps.coord - 1
+    cnt_hi = torch.where(
+        nint > 0, up.gather(-1, bi_hi.clamp(0, top).long())
+        - torch.where(bi_lo > 0, up.gather(-1, (bi_lo - 1).clamp(
+            0, top).long()), 0), 0)
+    in_grid = sup.i < row(torch.minimum(nr * tr, rows))
+    ends = (sup.i - r0 == hh_ - 1) & in_grid
+    strip = dict(b_hi=b_hi, bi_lo=bi_lo, nint=nint, m_lo=m_lo,
+                 cnt_hi=cnt_hi, s0=torch.maximum(bi_hi, bi_lo - 1) + 1,
+                 tc=tc_, kk=kk_, mu=torch.minimum(B, kk_),
+                 prev=torch.clamp(r0 - 1, min=0).long(), first=r0 == 0)
+    return sup, ti, hh, kk, nr, nc, strip, ends
+
+
+def _block_slot(sup: _BlockRows, b, strip):
+    """Each row in tile column ``b``: ``(c, f, m, hit)``, its causal
+    columns there, the forced ones among them, the candidate blocks they
+    meet and whether they meet a forced block."""
+    c0 = b * strip["tc"]
+    e = torch.minimum(c0 + (strip["kk"] - 1), sup.hi)
+    causal = c0 <= sup.hi
+    c = torch.where(causal, e - c0 + 1, 0)
+    f = torch.where(causal, torch.clamp(
+        torch.minimum(e, sup.init_col - 1) - c0 + 1, min=0) + torch.clamp(
+        e - torch.maximum(c0, sup.lq_col) + 1, min=0), 0)
+    m = torch.where(causal, torch.clamp(
+        torch.minimum(e // sup.B, sup.lq - 1)
+        - torch.maximum(c0 // sup.B, sup.init) + 1, min=0), 0)
+    return c, f, m, f > 0
+
+
+def causal_block_topk_prob_empty_t(p, h, t, caps: DensityCaps):
+    """params: [k, rows, cols, block + init 2**24 + local 2**36].  Per
+    strip, the interior tiles share two values, ``exp(sum_rows A(n_i) -
+    A(n_i - m))`` at ``m_lo`` and ``m_lo + 1``, the two partial tiles
+    are each their own sum, and the tiles that meet a forced block are
+    nonempty: int64 fixed-point prefix sums over the rows, as
+    causal_topk's.  O(caps.coord) per tile."""
+    del h
+    sup, _, _, _, nr, nc, strip, ends = _block_grid_t(p, t, caps)
+    nk, aq, aq_nk = _topk_miss_table_t(sup, caps)
+    S, _ = _topk_fix(caps)
+    floor = -(1 << (S + _TOPK_CLAMP_BITS))
+
+    def p_miss(v):
+        return torch.exp(_topk_strip_sum(v, strip).double() * 2.0 ** -S)
+
+    def miss(m):
+        return torch.clamp(aq_nk - aq[torch.clamp(nk - m, min=0)],
+                           min=floor)
+
+    hi = strip["cnt_hi"]
+    empty = torch.where(strip["nint"] > 0, (strip["nint"] - hi).double()
+                        * p_miss(miss(strip["m_lo"])) + hi.double()
+                        * p_miss(miss(strip["m_lo"] + 1)), 0.0)
+    for b in (strip["s0"], strip["s0"] + 1):
+        _, _, m, hit = _block_slot(sup, b, strip)
+        v = torch.where(hit, floor, miss(m))
+        empty = empty + torch.where(b <= strip["b_hi"], p_miss(v), 0.0)
+    run = torch.where(ends, strip["b_hi"] + 1, 0).sum(-1)
+    empty = torch.where(ends, empty, 0.0).sum(-1)
+    return ((nr * nc - run).double() + empty) / (nr * nc).double()
+
+
+def causal_block_topk_expected_density_t(p, h, t, caps: DensityCaps):
+    """``sum_rows (forced_i + min(k, n_i) cand_i / n_i)`` over ``nr nc
+    t``, with ``forced_i`` and ``cand_i`` row i's forced and candidate
+    columns inside the grid: one masked O(caps.coord) sum."""
+    del h
+    ti, tr, tc, nr, nc, rows, cols = _band_grid_t(p, t, caps,
+                                                  _scan_dtype(caps))
+    sup = _block_rows_t(p, caps)
+    lim = caps.coord + 1
+    g_r = torch.minimum(nr * tr, rows)[..., None]
+    g_c = torch.minimum(nc * tc, cols).clamp(max=lim).to(sup.i.dtype)
+    h1 = torch.minimum(sup.hi + 1, g_c[..., None])
+    inside = sup.i < g_r
+    forced = torch.minimum(sup.init_col, h1) + torch.clamp(
+        h1 - sup.lq_col, min=0)
+    cand = torch.clamp(torch.minimum(h1, sup.lq_col) - sup.init_col, min=0)
+    some = sup.n > 0
+    share = torch.where(some, torch.minimum(sup.n, sup.kc).double()
+                        / sup.n.double(), 0.0)
+    nnz = (torch.where(inside, forced, 0).sum(-1).double()
+           + torch.where(inside, cand.double() * share, 0.0).sum(-1))
+    return nnz / ((nr * nc).double() * ti.double())
+
+
+def causal_block_topk_max_nnz_t(p, h, t, caps: DensityCaps):
+    """A bound on the nonzeros a draw can put in a tile: ``max_tiles
+    sum_rows min(c_i, f_i + min(k, m_i) mu)``, with ``c_i``, ``f_i`` and
+    ``m_i`` row i's causal columns, forced columns and candidate blocks
+    in the tile, taken exactly on the interior and partial tiles and
+    bounded on the tiles that meet a forced block by each row's ``min(
+    c_i(0), min(kk, F_i) + k mu)``, ``F_i`` its forced columns (column 0
+    holds the most causal ones).  At block 1 it is causal_topk's."""
+    del h
+    sup, ti, hh, kk, _, _, strip, ends = _block_grid_t(p, t, caps)
+    mu, kk_ = strip["mu"].long(), strip["kk"]
+    m_top = strip["m_lo"] + (strip["cnt_hi"] > 0).to(sup.i.dtype)
+    most = torch.where(strip["nint"] > 0, (hh[..., None] * torch.minimum(
+        kk[..., None], torch.minimum(sup.kc, m_top).long() * mu)), 0)
+    for b in (strip["s0"], strip["s0"] + 1):
+        c, f, m, _ = _block_slot(sup, b, strip)
+        u = torch.minimum(c.long(), f + torch.minimum(m, sup.kc).long() * mu)
+        most = torch.maximum(most, torch.where(
+            b <= strip["b_hi"], _topk_strip_sum(u, strip), 0))
+    c0 = torch.clamp(torch.minimum(kk_, sup.hi + 1), min=0)
+    forced = torch.minimum(sup.init_col, sup.hi + 1) + torch.clamp(
+        sup.hi + 1 - sup.lq_col, min=0)
+    bound = torch.minimum(c0.long(), torch.minimum(kk_, forced).long()
+                          + sup.kc.long() * mu)
+    has = (strip["bi_lo"] > 0) | (strip["b_hi"] > strip["s0"] + 1)
+    most = torch.maximum(most, torch.where(
+        has, _topk_strip_sum(bound, strip), 0))
+    best = torch.where(ends, most, 0).amax(-1)
+    return torch.minimum(ti, best).double()
+
+
 def _by_distinct_tile(fn, p, t, caps: DensityCaps):
     """``fn(p, None, t, caps)`` (a ``causal_topk_*_t``) evaluated once a
     distinct tile size: the stack sorted, each sorted tile's run counted,
@@ -696,9 +920,10 @@ class TracedDensityStats:
     hold, so a tensor pays for its own kind only.  Branches whose static
     capacity is zero (no banded or causal kind / no actual tensor can
     ever be selected) are pruned to the trivial dense form.  The
-    ``causal_topk`` branches evaluate once a distinct tile size of the
-    stack (:func:`_by_distinct_tile`, ``caps.tiles`` rows) and observe
-    ``engine.topk_tiles`` / ``engine.topk_table_rows``."""
+    ``causal_topk`` and ``causal_block_topk`` branches evaluate once a
+    distinct tile size of the stack (:func:`_by_distinct_tile`,
+    ``caps.tiles`` rows) and observe ``engine.topk_tiles`` /
+    ``engine.topk_table_rows``."""
 
     def __init__(self, caps: DensityCaps):
         self.caps = caps
@@ -729,7 +954,9 @@ class TracedDensityStats:
                     actual_prob_empty_t if actual_ok
                     else dense_prob_empty_t,
                     band(causal_prob_empty_t, dense_prob_empty_t),
-                    topk(causal_topk_prob_empty_t, dense_prob_empty_t))
+                    topk(causal_topk_prob_empty_t, dense_prob_empty_t),
+                    topk(causal_block_topk_prob_empty_t,
+                         dense_prob_empty_t))
         self._ed = (dense_expected_density_t, uniform_expected_density_t,
                     structured_expected_density_t,
                     band(banded_expected_density_t,
@@ -739,13 +966,16 @@ class TracedDensityStats:
                     band(causal_expected_density_t,
                          dense_expected_density_t),
                     topk(causal_topk_expected_density_t,
+                         dense_expected_density_t),
+                    topk(causal_block_topk_expected_density_t,
                          dense_expected_density_t))
         self._mx = (dense_max_nnz_t, uniform_max_nnz_t,
                     structured_max_nnz_t,
                     band(banded_max_nnz_t, dense_max_nnz_t),
                     actual_max_nnz_t if actual_ok else dense_max_nnz_t,
                     band(causal_max_nnz_t, dense_max_nnz_t),
-                    topk(causal_topk_max_nnz_t, dense_max_nnz_t))
+                    topk(causal_topk_max_nnz_t, dense_max_nnz_t),
+                    topk(causal_block_topk_max_nnz_t, dense_max_nnz_t))
 
     @staticmethod
     def _select(branches, kind, params, hist, tile_size, kinds):
@@ -1376,6 +1606,208 @@ class CausalTopkModel(CausalModel):
         return self._by_tile(causal_topk_max_nnz_t, tile_size)
 
 
+@functools.lru_cache(maxsize=16)
+def _block_rows(rows: int, cols: int, block: int, k: int, init: int,
+                local: int) -> tuple:
+    """Per row of a causal_block_topk tensor: ``(hi, lq, lq_col, n,
+    kept, a)``, the last causal column, the first local block that is no
+    init block and its first column (past ``hi`` where there is none),
+    the candidate blocks, ``kept = min(k, n)`` and the table ``a[x] =
+    -log C(x, k)`` (0 up to ``k``)."""
+    hi = np.minimum(np.arange(rows), cols - 1)
+    nb = hi // block + 1
+    lq = np.maximum(nb - local, init)
+    n = np.maximum(nb - local - init, 0)
+    y = np.arange(int(n.max(initial=0)) + 1, dtype=np.float64)
+    a = np.cumsum(np.log1p(np.where(y > k, -k / np.maximum(y, 1.0), 0.0)))
+    return hi, lq, np.minimum(lq, nb) * block, n, np.minimum(n, k), a
+
+
+def _block_columns(h1, lq_col, init_col) -> tuple:
+    """Forced and candidate columns of the rows' first ``h1`` columns."""
+    return (np.minimum(init_col, h1) + np.maximum(h1 - lq_col, 0),
+            np.maximum(np.minimum(h1, lq_col) - init_col, 0))
+
+
+@functools.lru_cache(maxsize=4096)
+def _block_tile(rows: int, cols: int, block: int, k: int, init: int,
+                local: int, tile_size: int):
+    """``(prob_empty, expected_density, max_nnz)`` of a causal_block_topk
+    tensor at one tile size, over the strips and rows of its grid at
+    once (:class:`CausalBlockTopkModel` has the definitions)."""
+    hi, lq, lq_col, n, kept, a = _block_rows(rows, cols, block, k, init,
+                                             local)
+    B, ic = block, init * block
+    t, tr, tc, nr, nc, hh, kk = CausalModel._grid_of(rows, cols, tile_size)
+    g = nr * hh
+    forced, cand = _block_columns(np.minimum(hi[:g] + 1, min(nc * tc, cols)),
+                                  lq_col[:g], ic)
+    nnz = forced.sum() + np.sum(np.where(
+        n[:g] > 0, kept[:g] * cand / np.maximum(n[:g], 1), 0.0))
+    hi, lq, lq_col, n, kept = (x[:g].reshape(nr, hh)
+                               for x in (hi, lq, lq_col, n, kept))
+    r0 = np.arange(nr)[:, None] * tr
+    hi0 = np.minimum(r0, cols - 1)
+    # per strip: the run [0, b_hi]; the interior tiles [bi_lo, bi_hi],
+    # every row's candidate blocks; its two partial tiles from s0
+    b_hi = np.minimum((r0 + hh - 1) // tc, nc - 1)
+    bi_lo = -(-ic // tc)
+    bi_hi = np.minimum(np.minimum(
+        (np.maximum(hi0 // B + 1 - local, 0) * B - kk) // tc,
+        (hi0 - kk + 1) // tc), nc - 1)
+    nint = np.maximum(bi_hi - bi_lo + 1, 0)
+    m_lo, mu = (kk - 1) // B + 1, min(B, kk)
+    c0 = np.arange(nc) * tc
+    up = np.concatenate([[0], np.cumsum((c0 + kk - 1) // B - c0 // B + 1
+                                        - m_lo)])
+    cnt_hi = np.where(nint > 0, up[np.clip(bi_hi + 1, 0, nc)]
+                      - up[np.clip(bi_lo, 0, nc)], 0)
+
+    def log_miss(m, hit=False):
+        """The strip's log-probability that its rows miss m blocks."""
+        return np.where(hit | (m > n - kept), -np.inf,
+                        a[n] - a[np.maximum(n - m, 0)]).sum(1, keepdims=True)
+
+    empty = np.where(nint > 0, (nint - cnt_hi) * np.exp(log_miss(m_lo))
+                     + cnt_hi * np.exp(log_miss(m_lo + 1)), 0.0)
+    most = np.where(nint > 0, hh * np.minimum(
+        kk, np.minimum(k, m_lo + (cnt_hi > 0)) * mu), 0)
+    s0 = np.maximum(bi_hi, bi_lo - 1) + 1
+    for b in (s0, s0 + 1):
+        ok, c0 = b <= b_hi, b * tc
+        e = np.minimum(c0 + kk - 1, hi)
+        causal = c0 <= hi
+        c = np.where(causal, e - c0 + 1, 0)
+        f = np.where(causal, np.maximum(np.minimum(e, ic - 1) - c0 + 1, 0)
+                     + np.maximum(e - np.maximum(c0, lq_col) + 1, 0), 0)
+        m = np.where(causal, np.maximum(np.minimum(e // B, lq - 1)
+                                        - np.maximum(c0 // B, init) + 1, 0),
+                     0)
+        empty = empty + np.where(ok, np.exp(log_miss(m, f > 0)), 0.0)
+        most = np.maximum(most, np.where(ok, np.minimum(
+            c, f + np.minimum(m, k) * mu).sum(1, keepdims=True), 0))
+    held, _ = _block_columns(hi + 1, lq_col, ic)
+    bound = np.minimum(np.minimum(kk, hi + 1),
+                       np.minimum(kk, held) + k * mu).sum(1, keepdims=True)
+    most = np.maximum(most, np.where((bi_lo > 0) | (b_hi > s0 + 1), bound,
+                                     0))
+    run = int((b_hi + 1).sum())
+    return ((nr * nc - run + float(empty.sum())) / (nr * nc),
+            float(nnz) / (nr * nc * t), min(t, int(most.max())))
+
+
+@dataclasses.dataclass
+class CausalBlockTopkModel(DensityModel):
+    """A top-``k`` selection of whole key blocks inside the causal map,
+    the attention map of a block-sparse attention (MiniMax-M3's MSA: an
+    indexer scores max-pooled blocks of 128 keys and a query keeps its
+    top 16, its first and its own).  Row ``i``'s causal columns ``[0,
+    hi_i]``, ``hi_i = min(i, cols - 1)``, fall in blocks of ``block``
+    columns, ``0 .. nb_i - 1``; its first ``init`` and last ``local``
+    blocks are nonzero, and of the ``n_i`` others (candidates) exactly
+    ``min(k, n_i)`` are, drawn uniformly without replacement, the rows
+    independent.  ``block`` 1 with ``init`` and ``local`` 0 is
+    ``causal_topk`` at ``window = rows``.
+
+    On :class:`CausalModel`'s grid, with ``c_i``, ``f_i`` and ``m_i`` row
+    ``i``'s causal columns, forced columns and candidate blocks met in a
+    tile, and ``mu = min(block, kk)``:
+
+    * ``prob_empty``: the mean over tiles of ``prod_rows [f_i = 0] C(n_i -
+      m_i, k_i) / C(n_i, k_i)``, ``k_i = min(k, n_i)``;
+    * ``expected_density``: ``sum_rows f_i + k_i g_i / n_i`` over ``nr nc
+      t``, ``f_i`` and ``g_i`` the forced and candidate columns inside
+      the grid's columns;
+    * ``max_nnz``: a bound, ``max`` over the tiles of ``sum_rows min(c_i,
+      f_i + min(k, m_i) mu)``, where the tiles that meet a forced block
+      are bounded together by each row's ``min(c_i(0), min(kk, F_i) + k
+      mu)``, ``F_i`` all its forced columns.
+
+    A strip's tiles split into the empty ones past its diagonal, those
+    that meet a forced block, the interior ones (two values) and two
+    partial ones, so a tile size costs O(rows), over the strips and rows
+    at once, memoised per tile size (``_block_tile``).  The tensor forms
+    (``causal_block_topk_*_t``) compute the same sums in int64 fixed
+    point."""
+
+    rows: int
+    cols: int
+    block: int
+    k: int
+    init: int
+    local: int
+    batched = True
+    kind_id = CAUSAL_BLOCK_TOPK_ID
+    #: each field's least value, and the packed ones' bound
+    _LEAST = {"rows": 1, "cols": 1, "block": 1, "k": 1, "init": 0,
+              "local": 0}
+    _BELOW = {"block": 1 << _BLOCK_BITS, "init": 1 << _END_BITS,
+              "local": 1 << _END_BITS}
+
+    def __post_init__(self) -> None:
+        for name, least in self._LEAST.items():
+            v = getattr(self, name)
+            if (isinstance(v, bool) or not isinstance(v, numbers.Real)
+                    or int(v) != v or not least <= v
+                    < self._BELOW.get(name, math.inf)):
+                raise ValueError(f"causal_block_topk {name} must be a whole "
+                                 f"number in [{least}, "
+                                 f"{self._BELOW.get(name, 'inf')}), got "
+                                 f"{v!r}")
+            setattr(self, name, int(v))
+
+    @property
+    def tensor_size(self) -> int:  # type: ignore[override]
+        return self.rows * self.cols
+
+    def _key(self) -> tuple:
+        return (self.rows, self.cols, self.block, self.k, self.init,
+                self.local)
+
+    @property
+    def density(self) -> float:  # type: ignore[override]
+        hi, _, lq_col, n, kept, _ = _block_rows(*self._key())
+        forced, cand = _block_columns(hi + 1, lq_col, self.init * self.block)
+        return float(forced.sum() + np.sum(np.where(
+            n > 0, kept * cand / np.maximum(n, 1), 0.0))) / self.tensor_size
+
+    def _stats(self, tile_size) -> tuple:
+        return _block_tile(*self._key(), max(1, int(tile_size)))
+
+    def prob_empty(self, tile_size: int) -> float:
+        return self._stats(tile_size)[0]
+
+    def expected_density(self, tile_size: int) -> float:
+        return self._stats(tile_size)[1]
+
+    def max_nnz(self, tile_size: int) -> int:
+        return self._stats(tile_size)[2]
+
+    # ---------------- tensor closed forms (core.batched) ----------------
+    def params(self) -> np.ndarray:
+        return np.asarray([self.k, self.rows, self.cols, self.block
+                           + (self.init << _BLOCK_BITS)
+                           + (self.local << (_BLOCK_BITS + _END_BITS))],
+                          np.float64)
+
+    def _self_caps(self) -> DensityCaps:
+        return DensityCaps(coord=self.rows,
+                           div=max(1, math.isqrt(self.tensor_size)),
+                           tiles=_divisor_products(self.rows, self.cols))
+
+    _by_tile = CausalTopkModel._by_tile
+
+    def prob_empty_b(self, tile_size):
+        return self._by_tile(causal_block_topk_prob_empty_t, tile_size)
+
+    def expected_density_b(self, tile_size):
+        return self._by_tile(causal_block_topk_expected_density_t,
+                             tile_size)
+
+    def max_nnz_b(self, tile_size):
+        return self._by_tile(causal_block_topk_max_nnz_t, tile_size)
+
+
 #: tile-occupancy histograms keyed by the identity of the source array:
 #: the table costs O(n log n) to build (and the workload's density spec
 #: holds the same ndarray across model rebuilds), so it is computed once
@@ -1537,4 +1969,10 @@ def make_density_model(spec: object, tensor_size: int) -> DensityModel:
             raise ValueError(f"causal_topk needs {sorted(missing)}")
         return CausalTopkModel(rows=arg["rows"], cols=arg["cols"],
                                window=arg["window"], k=arg["k"])
+    if kind == "causal_block_topk":
+        keys = ("rows", "cols", "block", "k", "init", "local")
+        missing = set(keys) - set(arg)
+        if missing:
+            raise ValueError(f"causal_block_topk needs {sorted(missing)}")
+        return CausalBlockTopkModel(**{key: arg[key] for key in keys})
     raise ValueError(f"unknown density spec {spec!r}")

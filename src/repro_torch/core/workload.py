@@ -77,7 +77,11 @@ class Workload:
     # ("causal", {"rows", "cols", "window"}): (i, j) nonzero iff
     # i - window < j <= i, or ("causal_topk", {"rows", "cols", "window",
     # "k"}): min(k, n_i) of row i's n_i causal entries, drawn uniformly,
-    # or ("actual", np.ndarray).  Missing tensors are dense.
+    # or ("causal_block_topk", {"rows", "cols", "block", "k", "init",
+    # "local"}): row i's causal columns in blocks of ``block``, its first
+    # init and last local blocks and min(k, n_i) of its n_i other blocks,
+    # drawn uniformly, or ("actual", np.ndarray).  Missing tensors are
+    # dense.
     densities: dict[str, object] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:

@@ -25,8 +25,9 @@ the card.  On the CPU (``device="cpu"``) the same step runs eagerly.
 
 Measurement: each capture observes the graph's kernel-node count on the
 always-on histogram ``fused.graph_kernels``, and a capture whose program
-evaluates a causal (causal_topk) tensor also on
-``fused.graph_kernels.causal`` (``fused.graph_kernels.causal_topk``); with
+evaluates a tensor of a kind past the JAX package's (``causal``,
+``causal_topk``, ``causal_block_topk``) also on
+``fused.graph_kernels.<kind>``; with
 tracing on (``obs.enable()`` / ``REPRO_TRACE``) each chunk's
 ``engine.eval`` span carries ``device_s``, the replays' time on the
 device's own clock (two CUDA events around them, read after the chunk's
@@ -72,7 +73,7 @@ import torch
 from .. import obs
 from ..core import compile_stats
 from ..core.arch import COMPUTE_FIELDS, STORAGE_FIELDS, pack_arch_params
-from ..core.density import CAUSAL_ID, CAUSAL_TOPK_ID, MODEL_KINDS
+from ..core.density import ACTUAL_ID, MODEL_KINDS
 from ..core.batched import (BucketedModel, DeviceLeaves, _ProgramRecord,
                             _device_arch_rows, register_cache_clearer,
                             surrogate_loss)
@@ -680,12 +681,12 @@ class FusedProgram:
 
     @staticmethod
     def _observe_kernels(kernels: int, wp) -> None:
-        """A capture's kernel count, on ``fused.graph_kernels`` and, where
-        the program evaluates a causal or causal_topk tensor, on
-        ``fused.graph_kernels.<kind>``."""
+        """A capture's kernel count, on ``fused.graph_kernels`` and, for
+        each kind past the JAX package's (an id past ``ACTUAL_ID``) that
+        the program evaluates, on ``fused.graph_kernels.<kind>``."""
         obs.metrics.histogram("fused.graph_kernels").observe(kernels)
-        for kind in (CAUSAL_ID, CAUSAL_TOPK_ID):
-            if kind in wp.kinds:
+        for kind in sorted(set(wp.kinds)):
+            if kind > ACTUAL_ID:
                 obs.metrics.histogram(
                     f"fused.graph_kernels.{MODEL_KINDS[kind]}").observe(
                         kernels)
