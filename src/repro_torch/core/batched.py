@@ -33,8 +33,9 @@ Workload- and architecture-as-data
 ----------------------------------
 A :class:`WorkloadParams` packs what a layer contributes to the math —
 rank bounds plus per-tensor density kind ids, parameter rows and
-tile-occupancy histograms — and an :class:`~.arch.ArchParams` packs every
-per-level architecture scalar.  Programs are cached by workload
+tile-occupancy histograms, and on a device the table kinds' statistics
+tables, built there once a layer — and an :class:`~.arch.ArchParams`
+packs every per-level architecture scalar.  Programs are cached by workload
 *structure*, arch *topology* + SAF placement, static
 :class:`~.density.DensityCaps` and template or bucket (``_init_program``),
 never by bounds, densities or architecture scalars, so the layers of a
@@ -85,7 +86,8 @@ from . import compile_stats
 from .arch import (STORAGE_FIELDS, ArchParams, Architecture,
                    arch_structure, pack_arch_params, topology_key)
 from .density import (ACTUAL_ID, BatchedDensityUnsupported, DensityCaps,
-                      DensityModel, caps_for_models, make_density_model)
+                      DensityModel, caps_for_models, make_density_model,
+                      stat_tables)
 from .device import PopulationMesh, resolve_device
 from .mapping import Loop, LoopNest
 from .nest_program import F64, BatchedUnsupported, NestProgram, _max
@@ -106,18 +108,21 @@ def workload_structure(workload: Workload) -> tuple:
 
 
 class DeviceLeaves(NamedTuple):
-    """A :class:`WorkloadParams` on one device: its four rows as tensors
-    and the host tuple of kind ids the density selection evaluates."""
+    """A :class:`WorkloadParams` on one device: its four rows as tensors,
+    the host tuple of kind ids the density selection evaluates and the
+    ``(T, 4, caps.tiles)`` statistics tables of its table-kind tensors
+    (:func:`~.density.stat_tables`)."""
 
     rank_bounds: torch.Tensor
     model_ids: torch.Tensor
     density_params: torch.Tensor
     hist: torch.Tensor
     kinds: tuple
+    tables: torch.Tensor | None = None
 
     def tensors(self) -> tuple:
         return self.rank_bounds, self.model_ids, self.density_params, \
-            self.hist
+            self.hist, self.tables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,8 +153,11 @@ class WorkloadParams:
 
     def device_leaves(self, device) -> DeviceLeaves:
         """The four rows as tensors on ``device`` (float64, int64 ids),
-        cached per device because the params are immutable, plus the
-        host tuple of kind ids the density selection evaluates."""
+        the host tuple of kind ids the density selection evaluates and
+        the table kinds' statistics tables, evaluated on ``device`` at
+        this layer's params: cached per device because the params are
+        immutable, so a layer's tables are built once a device and its
+        searches only look them up."""
         device = resolve_device(device)
         rb, mids, dp, hist = self.leaves()
         return _device_cached(self, "_device_leaves", device, lambda: (
@@ -159,7 +167,8 @@ class WorkloadParams:
                 torch.as_tensor(np.asarray(dp, np.float64), device=device),
                 torch.as_tensor(np.asarray(hist, np.float64),
                                 device=device),
-                tuple(int(k) for k in mids))))
+                tuple(int(k) for k in mids),
+                stat_tables(mids, dp, self.caps, device))))
 
 
 def _device_cached(owner, attr: str, dev, make):

@@ -58,9 +58,13 @@ The ``actual``-data model lowers through a per-tensor *tile-occupancy
 histogram* (:meth:`ActualDataModel.hist_table`): ``(3, tensor_size)``
 exact ``(prob_empty, expected_density, max_nnz)`` rows for every aligned
 1-D tile size, precomputed once from the array and gathered by tile size
-at evaluation time.  Shape-dependent statistics (banded row scans,
-histogram tables) are padded to static :class:`DensityCaps` so programs
-stay shape-stable across layers.
+at evaluation time.  The two top-k kinds lower the same way through a
+per-tensor *statistics table* (:func:`stat_table`): their forms
+evaluated once at every tile size the engine can ask of the tensor, the
+products ``d e`` of its dims' divisors, and looked up by tile size at
+evaluation time.  Shape-dependent statistics (banded row scans,
+histogram and statistics tables) are padded to static
+:class:`DensityCaps` so programs stay shape-stable across layers.
 """
 from __future__ import annotations
 
@@ -125,9 +129,8 @@ class DensityCaps:
     >= the isqrt of any such tensor's size (tile-shape divisor scan),
     ``hist`` >= the size of any actual-data tensor (histogram table
     length), and ``tiles`` >= the distinct tile sizes a causal_topk or
-    causal_block_topk tensor can be asked at (the rows of its
-    statistics' table,
-    :func:`_by_distinct_tile`; zero evaluates every tile).  Zero means
+    causal_block_topk tensor can be asked at (the width of its
+    statistics table, :func:`stat_table`).  Zero means
     "no tensor of that family" and prunes the corresponding branches of
     the kind selection entirely.  Caps are part of a
     compiled program's cache key; :func:`caps_for_models` rounds them up
@@ -174,16 +177,23 @@ def caps_for_models(models: Sequence["DensityModel"],
 
 
 @functools.lru_cache(maxsize=64)
-def _divisor_products(rows: int, cols: int) -> int:
-    """``|{d e : d | rows, e | cols}|``: every tile, leader window and
-    format fiber the engine asks of a tensor whose two dims are single
-    ranks is such a product (a factor gene decodes to a divisor split,
-    and a spatial factor divides its rank), so this bounds the distinct
-    tile sizes of any stack of its statistics."""
+def _tile_sizes(rows: int, cols: int) -> tuple[int, ...]:
+    """``{d e : d | rows, e | cols}``, sorted: every tile, leader window
+    and format fiber the engine asks of a tensor whose two dims are
+    single ranks is such a product (a factor gene decodes to a divisor
+    split, and a spatial factor divides its rank), so these are the
+    sizes of its statistics table."""
     def divisors(n: int) -> list[int]:
         low = [d for d in range(1, math.isqrt(n) + 1) if n % d == 0]
         return low + [n // d for d in low]
-    return len({d * e for d in divisors(rows) for e in divisors(cols)})
+    return tuple(sorted({d * e for d in divisors(rows)
+                         for e in divisors(cols)}))
+
+
+def _divisor_products(rows: int, cols: int) -> int:
+    """``|{d e : d | rows, e | cols}|``, the bound on the distinct tile
+    sizes of any stack of the tensor's statistics."""
+    return len(_tile_sizes(rows, cols))
 
 
 # ----------------------------------------------------------------------
@@ -865,8 +875,10 @@ def causal_block_topk_max_nnz_t(p, h, t, caps: DensityCaps):
 
 
 def _by_distinct_tile(fn, p, t, caps: DensityCaps):
-    """``fn(p, None, t, caps)`` (a ``causal_topk_*_t``) evaluated once a
-    distinct tile size: the stack sorted, each sorted tile's run counted,
+    """``fn(p, None, t, caps)`` (a table kind's form) evaluated once a
+    distinct tile size of a stack the caller chose (the instance
+    wrappers' route, :meth:`CausalTopkModel._by_tile`; the engine reads
+    :func:`stat_table`): the stack sorted, each sorted tile's run counted,
     the first of each run gathered into a sorted static table of
     ``U = min(caps.tiles, t.numel())`` rows (padded with the largest
     size), ``fn`` on the table, and each tile's answer gathered from its
@@ -887,6 +899,71 @@ def _by_distinct_tile(fn, p, t, caps: DensityCaps):
     vals = fn(p, None, table, caps)
     at = torch.searchsorted(table, flat).clamp(max=U - 1)
     return torch.where(table[at] == flat, vals[at], math.nan).view(tt.shape)
+
+
+#: the table kinds' forms, (prob_empty, expected_density, max_nnz): the
+#: kinds whose statistics the engine reads from a table of the tensor's
+#: tile sizes (:func:`stat_table`)
+TABLE_STATS = {
+    CAUSAL_TOPK_ID: (causal_topk_prob_empty_t,
+                     causal_topk_expected_density_t, causal_topk_max_nnz_t),
+    CAUSAL_BLOCK_TOPK_ID: (causal_block_topk_prob_empty_t,
+                           causal_block_topk_expected_density_t,
+                           causal_block_topk_max_nnz_t)}
+
+
+def stat_table(kind: int, params, caps: DensityCaps,
+               device=None) -> torch.Tensor:
+    """The ``(4, caps.tiles)`` statistics table of a table-kind tensor:
+    its tile sizes (:func:`_tile_sizes` of its rows and cols, ``params[1]``
+    and ``params[2]``, on the host), then ``prob_empty``,
+    ``expected_density`` and ``max_nnz`` at them, each evaluated once by
+    the kind's forms at ``caps``; padded with the largest size and its
+    answers.  Each evaluation observes ``engine.topk_table_rows`` with the
+    sizes it evaluated, so the histogram's count is three times the
+    tables built: a count that grows with searches rather than with
+    layers means a search rebuilds its table."""
+    sizes = _tile_sizes(round(float(params[1])), round(float(params[2])))
+    if len(sizes) > caps.tiles:
+        raise ValueError(f"caps {caps} hold {caps.tiles} tile sizes, the "
+                         f"tensor has {len(sizes)}")
+    p = torch.as_tensor(np.asarray(params, np.float64), device=device)
+    t = torch.tensor(sizes, dtype=torch.float64, device=device)
+    rows = [t]
+    for fn in TABLE_STATS[kind]:
+        rows.append(fn(p, None, t, caps))
+        obs.metrics.histogram("engine.topk_table_rows").observe(len(sizes))
+    table = torch.stack(rows)
+    return torch.cat([table, table[:, -1:].expand(
+        -1, caps.tiles - len(sizes))], 1)
+
+
+def stat_tables(kinds, params, caps: DensityCaps,
+                device=None) -> torch.Tensor:
+    """``(T, 4, caps.tiles)``: each table-kind tensor's :func:`stat_table`
+    and zeros for every other kind (zero-width where ``caps.tiles`` is
+    0, as the histograms are where no actual-data tensor exists)."""
+    out = torch.zeros((len(kinds), 4, caps.tiles), dtype=torch.float64,
+                      device=device)
+    for i, (kind, p) in enumerate(zip(kinds, params)):
+        if int(kind) in TABLE_STATS:
+            out[i] = stat_table(int(kind), p, caps, device)
+    return out
+
+
+def _table_lookup(table, stat: int, t):
+    """Row ``stat`` of a :func:`stat_table` at the tile sizes ``t``: each
+    tile's column found among the sizes (``searchsorted``) and its answer
+    gathered; a size the table does not hold, one that is no ``d e``
+    product, answers NaN, never a neighbour's value.  Observes
+    ``engine.topk_tiles`` with the tiles answered."""
+    tt = _tile(table, t)
+    flat = tt.reshape(-1)
+    sizes = table[0]
+    at = torch.searchsorted(sizes, flat).clamp(max=sizes.numel() - 1)
+    obs.metrics.histogram("engine.topk_tiles").observe(flat.numel())
+    return torch.where(sizes[at] == flat, table[stat][at],
+                       math.nan).view(tt.shape)
 
 
 def _actual_index(p, t):
@@ -920,10 +997,10 @@ class TracedDensityStats:
     hold, so a tensor pays for its own kind only.  Branches whose static
     capacity is zero (no banded or causal kind / no actual tensor can
     ever be selected) are pruned to the trivial dense form.  The
-    ``causal_topk`` and ``causal_block_topk`` branches evaluate once a
-    distinct tile size of the stack (:func:`_by_distinct_tile`,
-    ``caps.tiles`` rows) and observe ``engine.topk_tiles`` /
-    ``engine.topk_table_rows``."""
+    ``causal_topk`` and ``causal_block_topk`` branches look their answers
+    up in the tensor's ``table`` (:func:`stat_table`, the engine's
+    workload leaf, built once a layer) and evaluate nothing; without a
+    table they evaluate the forms at every tile."""
 
     def __init__(self, caps: DensityCaps):
         self.caps = caps
@@ -933,20 +1010,17 @@ class TracedDensityStats:
         def band(fn, dense):
             return (lambda p, h, t: fn(p, h, t, caps)) if band_ok else dense
 
-        def topk(fn, dense):
-            """``fn`` once a distinct tile size, each evaluation's tiles
-            and table rows observed"""
-            if not band_ok:
-                return dense
+        def topk(kind, stat, dense):
+            """row ``stat`` of the table, or the form without one"""
+            fn = TABLE_STATS[kind][stat - 1]
 
-            def stat(p, h, t):
-                out = _by_distinct_tile(fn, p, t, caps)
-                n = out.numel()
-                obs.metrics.histogram("engine.topk_tiles").observe(n)
-                obs.metrics.histogram("engine.topk_table_rows").observe(
-                    min(caps.tiles, n) or n)
-                return out
-            return stat
+            def look(p, h, t, table=None):
+                if not band_ok:
+                    return dense(p, h, t)
+                if table is None:
+                    return fn(p, h, t, caps)
+                return _table_lookup(table, stat, t)
+            return look
 
         self._pe = (dense_prob_empty_t, uniform_prob_empty_t,
                     structured_prob_empty_t,
@@ -954,9 +1028,8 @@ class TracedDensityStats:
                     actual_prob_empty_t if actual_ok
                     else dense_prob_empty_t,
                     band(causal_prob_empty_t, dense_prob_empty_t),
-                    topk(causal_topk_prob_empty_t, dense_prob_empty_t),
-                    topk(causal_block_topk_prob_empty_t,
-                         dense_prob_empty_t))
+                    topk(CAUSAL_TOPK_ID, 1, dense_prob_empty_t),
+                    topk(CAUSAL_BLOCK_TOPK_ID, 1, dense_prob_empty_t))
         self._ed = (dense_expected_density_t, uniform_expected_density_t,
                     structured_expected_density_t,
                     band(banded_expected_density_t,
@@ -965,40 +1038,48 @@ class TracedDensityStats:
                     else dense_expected_density_t,
                     band(causal_expected_density_t,
                          dense_expected_density_t),
-                    topk(causal_topk_expected_density_t,
-                         dense_expected_density_t),
-                    topk(causal_block_topk_expected_density_t,
-                         dense_expected_density_t))
+                    topk(CAUSAL_TOPK_ID, 2, dense_expected_density_t),
+                    topk(CAUSAL_BLOCK_TOPK_ID, 2, dense_expected_density_t))
         self._mx = (dense_max_nnz_t, uniform_max_nnz_t,
                     structured_max_nnz_t,
                     band(banded_max_nnz_t, dense_max_nnz_t),
                     actual_max_nnz_t if actual_ok else dense_max_nnz_t,
                     band(causal_max_nnz_t, dense_max_nnz_t),
-                    topk(causal_topk_max_nnz_t, dense_max_nnz_t),
-                    topk(causal_block_topk_max_nnz_t, dense_max_nnz_t))
+                    topk(CAUSAL_TOPK_ID, 3, dense_max_nnz_t),
+                    topk(CAUSAL_BLOCK_TOPK_ID, 3, dense_max_nnz_t))
 
     @staticmethod
-    def _select(branches, kind, params, hist, tile_size, kinds):
+    def _select(branches, kind, params, hist, tile_size, kinds, table):
+        def one(k):
+            if k in TABLE_STATS:
+                return branches[k](params, hist, tile_size, table)
+            return branches[k](params, hist, tile_size)
         if not isinstance(kind, torch.Tensor):
-            return branches[int(kind)](params, hist, tile_size)
+            return one(int(kind))
         kinds = sorted(set(range(len(branches)) if kinds is None
                            else kinds))
-        out = branches[kinds[0]](params, hist, tile_size)
+        out = one(kinds[0])
         for k in kinds[1:]:
             # unselected branches may hold inf/NaN (lgamma, log terms);
             # where() keeps them out of the result
-            out = torch.where(kind == k,
-                              branches[k](params, hist, tile_size), out)
+            out = torch.where(kind == k, one(k), out)
         return out
 
-    def prob_empty(self, kind, params, hist, tile_size, kinds=None):
-        return self._select(self._pe, kind, params, hist, tile_size, kinds)
+    def prob_empty(self, kind, params, hist, tile_size, kinds=None,
+                   table=None):
+        return self._select(self._pe, kind, params, hist, tile_size, kinds,
+                            table)
 
-    def expected_density(self, kind, params, hist, tile_size, kinds=None):
-        return self._select(self._ed, kind, params, hist, tile_size, kinds)
+    def expected_density(self, kind, params, hist, tile_size, kinds=None,
+                         table=None):
+        return self._select(self._ed, kind, params, hist, tile_size, kinds,
+                            table)
 
-    def max_nnz(self, kind, params, hist, tile_size, kinds=None):
-        return self._select(self._mx, kind, params, hist, tile_size, kinds)
+    def max_nnz(self, kind, params, hist, tile_size, kinds=None,
+                table=None):
+        return self._select(self._mx, kind, params, hist, tile_size, kinds,
+                            table)
+
 
 class DensityModel:
     """Base interface; tile_size is the flattened number of elements."""

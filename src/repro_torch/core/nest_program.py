@@ -600,7 +600,8 @@ class NestProgram:
     def _density(self, wp, stat: str, name: str, tiles):
         i = self._tidx[name]
         return self._stat_fns[stat](wp.model_ids[i], wp.density_params[i],
-                                    wp.hist[i], tiles, kinds=(wp.kinds[i],))
+                                    wp.hist[i], tiles, kinds=(wp.kinds[i],),
+                                    table=wp.tables[i])
 
     # ---------------- step 2: sparse filtering ----------------
     def _gating(self, g: _Slots, dq: _DensityQueries) -> tuple:

@@ -620,8 +620,9 @@ class FusedProgram:
         the captured graph."""
         leaves = self.bm._bind_params(None)
         if self._wp is None or self._wp.kinds != leaves.kinds:
-            self._wp = DeviceLeaves(*(t.clone() for t in leaves.tensors()),
-                                    leaves.kinds)
+            rb, ids, dp, hist, tables = (t.clone()
+                                         for t in leaves.tensors())
+            self._wp = DeviceLeaves(rb, ids, dp, hist, leaves.kinds, tables)
             self.density_kinds = tuple(sorted({MODEL_KINDS[k]
                                                for k in leaves.kinds}))
             self._graph = None

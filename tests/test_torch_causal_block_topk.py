@@ -194,18 +194,19 @@ STACKED = [(64, 64, 2, 1, 0, 0), (128, 96, 3, 2, 1, 1),
 def test_the_table_gives_the_scalar_models_answers(case):
     """Stacks of every tile size the engine can ask (the products of
     divisors, with repeats, in a (2, U) and a shuffled (3, U) stack)
-    through ``TracedDensityStats``' table at ``caps_for_models``' caps:
-    the scalar model's answers to 1e-12 relative or 1e-14 absolute (the
-    strips' sums are int64 fixed point in the forms, of a quantum
-    ``2**-S`` a row, and float in the scalar model, so a tile's
-    probability of 1e-185 differs by some 1e-12 of itself), and the
-    direct forms' bit for bit."""
+    through ``TracedDensityStats``' lookup in the tensor's table
+    (``stat_table`` at ``caps_for_models``' caps): the scalar model's
+    answers to 1e-12 relative or 1e-14 absolute (the strips' sums are
+    int64 fixed point in the forms, of a quantum ``2**-S`` a row, and
+    float in the scalar model, so a tile's probability of 1e-185 differs
+    by some 1e-12 of itself), and the direct forms' bit for bit."""
     m = port.CausalBlockTopkModel(*case)
     caps = port.caps_for_models([m])
     sizes = _products(*case[:2])
     assert len(sizes) <= caps.tiles
     stats = port.TracedDensityStats(caps)
     params = torch.as_tensor(m.params())
+    table = port.stat_table(m.kind_id, m.params(), caps)
     kind = torch.tensor(m.kind_id)
     g = torch.Generator().manual_seed(case[0] + case[2])
     flat = torch.tensor(sizes * 2, dtype=torch.float64)
@@ -214,7 +215,8 @@ def test_the_table_gives_the_scalar_models_answers(case):
               [:3 * len(sizes)].view(3, -1))
     for tiles in stacks:
         for name in STATS:
-            got = getattr(stats, name)(kind, params, None, tiles)
+            got = getattr(stats, name)(kind, params, None, tiles,
+                                       table=table)
             want = torch.tensor([[getattr(m, name)(int(t)) for t in row]
                                  for row in tiles.tolist()],
                                 dtype=torch.float64)
@@ -228,19 +230,23 @@ def test_the_table_gives_the_scalar_models_answers(case):
 def test_the_cells_tensor_agrees_with_the_scalar_model():
     """attn_av's P of the MSA cell (131,072 x 131,072, blocks of 128, k
     16, the first and own block): its 291,160,064 nonzeros, and the
-    table's answers at powers of two the scalar model's to 1e-12
-    relative (S 34 fixed point over 131,072 rows)."""
+    answers of its table (35 sizes, 64 columns) at powers of two the
+    scalar model's to 1e-12 relative (S 34 fixed point over 131,072
+    rows)."""
     n = 131072
     m = port.CausalBlockTopkModel(n, n, 128, 16, 1, 1)
     assert round(m.density * n * n) == 291160064
     caps = port.caps_for_models([m])
     assert caps == port.DensityCaps(coord=n, div=n, hist=0, tiles=64)
     assert port._topk_fix(caps) == (34, 18)
+    assert len(port._tile_sizes(n, n)) == 35
     tiles = torch.tensor([[2.0 ** e for e in range(0, 35, 2)]])
     stats = port.TracedDensityStats(caps)
     params = torch.as_tensor(m.params())
+    table = port.stat_table(m.kind_id, m.params(), caps)
     for name in STATS:
-        got = getattr(stats, name)(m.kind_id, params, None, tiles)[0]
+        got = getattr(stats, name)(m.kind_id, params, None, tiles,
+                                   table=table)[0]
         want = torch.tensor([getattr(m, name)(int(t)) for t in tiles[0]],
                             dtype=torch.float64)
         torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-300,
@@ -287,24 +293,43 @@ def test_a_malformed_spec_is_refused(bad):
 # the engine's path: the captured-graph program and its histograms
 # ----------------------------------------------------------------------
 def test_a_fused_search_evaluates_the_kind_once_a_tile_size(monkeypatch):
-    """A fused CPU search over a causal_block_topk operand on STC-flexible-
-    RLE: its ``engine.*`` spans carry the kind among ``density_kinds``,
-    every evaluation goes through the table (``_by_distinct_tile`` at the
-    caps' bound, finite answers), and its winner passed the scalar
-    oracle."""
+    """Two fused CPU searches over one causal_block_topk operand on STC-
+    flexible-RLE: the layer's table is built once, before the fused
+    step (the kind's forms run three times, once a statistic, at the
+    tensor's ``d e`` sizes, and ``engine.topk_table_rows`` counts 3, not
+    6), the step only looks the answers up (finite, each lookup on
+    ``engine.topk_tiles``), the ``engine.*`` spans carry the kind among
+    ``density_kinds`` and each winner passed the scalar oracle."""
     from repro_torch.core import matmul
     from repro_torch.core.batched import clear_caches
     from repro_torch.core.mapper import MapspaceConstraints
     from repro_torch.core.presets import stc_like
     from repro_torch.search import SearchConfig, run_search
-    seen = []
-    real = port._by_distinct_tile
+    from repro_torch.search import fused as F
+    calls, answers, inside = [], [], [False]
 
-    def spy(fn, p, t, caps):
-        out = real(fn, p, t, caps)
-        seen.append((fn.__name__, caps.tiles, out))
-        return out
-    monkeypatch.setattr(port, "_by_distinct_tile", spy)
+    def spied(fn):
+        def spy(p, h, t, caps):
+            calls.append((fn.__name__, inside[0], tuple(t.tolist())))
+            return fn(p, h, t, caps)
+        return spy
+    monkeypatch.setitem(port.TABLE_STATS, port.CAUSAL_BLOCK_TOPK_ID, tuple(
+        spied(fn) for fn in port.TABLE_STATS[port.CAUSAL_BLOCK_TOPK_ID]))
+    real_step, real_lookup = F.FusedProgram._step, port._table_lookup
+
+    def step(self, st, wp):
+        inside[0] = True
+        try:
+            return real_step(self, st, wp)
+        finally:
+            inside[0] = False
+
+    def lookup(table, stat, t):
+        answers.append(real_lookup(table, stat, t))
+        return answers[-1]
+    monkeypatch.setattr(F.FusedProgram, "_step", step)
+    monkeypatch.setattr(port, "_table_lookup", lookup)
+    monkeypatch.setattr(obs.metrics, "REGISTRY", obs.metrics.Registry())
     wl = matmul(96, 96, 16, densities={
         "A": ("causal_block_topk", {"rows": 96, "cols": 96, "block": 8,
                                     "k": 2, "init": 1, "local": 1}),
@@ -312,11 +337,12 @@ def test_a_fused_search_evaluates_the_kind_once_a_tile_size(monkeypatch):
     clear_caches()
     tr = obs.enable()
     try:
-        res = run_search(stc_like(n=2, m=4, fmt_kind="RLE"), wl,
-                         MapspaceConstraints(budget=96, seed=0),
-                         strategy="es", key=7, generations=3, pop_size=32,
-                         fused=True, config=SearchConfig(fused_chunk=2),
-                         device="cpu")
+        results = [run_search(stc_like(n=2, m=4, fmt_kind="RLE"), wl,
+                              MapspaceConstraints(budget=96, seed=0),
+                              strategy="es", key=key, generations=3,
+                              pop_size=32, fused=True,
+                              config=SearchConfig(fused_chunk=2),
+                              device="cpu") for key in (7, 8)]
         kinds = {tuple(s.attrs["density_kinds"]) for s in tr.spans
                  if s.name in ("engine.compile", "engine.eval")
                  and s.attrs.get("kind") == "fused"}
@@ -324,12 +350,18 @@ def test_a_fused_search_evaluates_the_kind_once_a_tile_size(monkeypatch):
         obs.disable()
         clear_caches()
     assert kinds == {("causal_block_topk", "dense")}
-    assert res.best is not None and res.best.result.valid
-    assert {name for name, _, _ in seen} <= {
-        f"causal_block_topk_{s}_t" for s in STATS}
-    assert seen and all(tiles == port._pow2_cap(len(_products(96, 96)))
-                        and bool(torch.isfinite(out).all())
-                        for _, tiles, out in seen)
+    for res in results:
+        assert res.best is not None and res.best.result.valid
+    sizes = tuple(float(t) for t in _products(96, 96))
+    assert calls == [(f"causal_block_topk_{s}_t", False, sizes)
+                     for s in STATS]
+    snap = obs.metrics.snapshot()
+    rows = snap["engine.topk_table_rows"]
+    assert (rows["count"], rows["sum"]) == (3, 3 * len(sizes))
+    assert answers and all(bool(torch.isfinite(a).all()) for a in answers)
+    assert snap["engine.topk_tiles"]["count"] == len(answers)
+    assert snap["engine.topk_tiles"]["sum"] == sum(a.numel()
+                                                   for a in answers)
 
 
 def test_only_a_kind_past_the_references_observes_its_histogram(
@@ -358,22 +390,32 @@ def test_only_a_kind_past_the_references_observes_its_histogram(
 
 @pytest.mark.gpu
 def test_cuda_the_table_equals_the_cpus_at_the_cells_caps():
-    """On the card, a generation's stacks at the MSA cell's attn_av P and
-    caps ((1,024, 6) and (1,024, 4) tiles of its 35 sizes): each
-    statistic through the table gives the CPU's answers to 1e-12
-    relative (the strips' sums are integers, but the card's ``exp``,
-    ``log1p`` and float sums round otherwise) and ``max_nnz`` exactly."""
+    """On the card, the MSA cell's attn_av P at the cell's caps: the
+    table built on the card (its 35 sizes, padded to 64) gives the
+    CPU's to 1e-12 relative (the strips' sums are integers, but the
+    card's ``exp``, ``log1p`` and float sums round otherwise) and
+    ``max_nnz`` and the sizes exactly, and a generation's stacks
+    ((1,024, 6) and (1,024, 4) tiles) looked up in it on the card give
+    the CPU table's answers."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     n = 131072
     m = port.CausalBlockTopkModel(n, n, 128, 16, 1, 1)
-    stats = port.TracedDensityStats(port.caps_for_models([m]))
+    caps = port.caps_for_models([m])
+    stats = port.TracedDensityStats(caps)
+    cpu = port.stat_table(m.kind_id, m.params(), caps)
+    card = port.stat_table(m.kind_id, m.params(), caps, "cuda")
+    assert card.shape == cpu.shape == (4, 64)
+    for row in (0, 3):
+        assert torch.equal(card[row].cpu(), cpu[row]), row
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-12, atol=1e-300)
     params = torch.as_tensor(m.params())
     g = torch.Generator().manual_seed(36)
     for name, q in zip(STATS, (6, 4, 4)):
         tiles = 2.0 ** torch.randint(0, 35, (1024, q), generator=g)
-        cpu = getattr(stats, name)(m.kind_id, params, None, tiles)
-        card = getattr(stats, name)(m.kind_id, params.cuda(), None,
-                                    tiles.cuda()).cpu()
-        torch.testing.assert_close(card, cpu, rtol=1e-12, atol=1e-300,
+        want = getattr(stats, name)(m.kind_id, params, None, tiles,
+                                    table=cpu)
+        got = getattr(stats, name)(m.kind_id, params.cuda(), None,
+                                   tiles.cuda(), table=card).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-300,
                                    msg=name)

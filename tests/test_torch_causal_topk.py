@@ -203,14 +203,16 @@ def test_the_table_answers_as_the_direct_forms(case):
     """Each statistic once a distinct tile size equals the direct forms
     on every tile of the stack to 1e-13 relative (the strips' sums are
     int64; only ``prob_empty``'s float sum over rows may take another
-    order with the shape), through ``_by_distinct_tile`` and through
-    ``TracedDensityStats``, at a stack whose distinct sizes equal the
-    bound exactly too."""
+    order with the shape), through ``_by_distinct_tile``, at a stack
+    whose distinct sizes equal the bound exactly too, and through
+    ``TracedDensityStats``' lookup in the tensor's table where the stack
+    holds only its ``d * e`` sizes."""
     rows, cols, window, k = case
     m = port.CausalTopkModel(rows=rows, cols=cols, window=window, k=k)
     caps = port.caps_for_models([m])
     exact = port.caps_for_models([m], round_pow2=False)
     stats = port.TracedDensityStats(caps)
+    table = port.stat_table(m.kind_id, m.params(), caps)
     params = torch.as_tensor(m.params())
     kind = torch.tensor(m.kind_id)
     for label, tiles in _stacks(rows, cols).items():
@@ -220,8 +222,9 @@ def test_the_table_answers_as_the_direct_forms(case):
             fn = getattr(port, f"causal_topk_{name}_t")
             direct = fn(params, None, tiles, caps)
             for got in (port._by_distinct_tile(fn, params, tiles, bound),
-                        getattr(stats, name)(kind, params, None, tiles)
-                        if bound is caps else direct):
+                        getattr(stats, name)(kind, params, None, tiles,
+                                             table=table)
+                        if label != "rounded" else direct):
                 assert got.shape == tiles.shape
                 torch.testing.assert_close(got, direct, rtol=1e-13, atol=0,
                                            msg=f"{label} {name}")
@@ -295,18 +298,21 @@ def test_a_stack_past_the_bound_answers_nan_where_the_table_cannot_hold():
 
 
 def test_a_search_asks_the_kind_only_at_products_of_divisors(monkeypatch):
-    """A small fused CPU search of a layer built like attn_av (T 2,048,
-    k 128, 512 columns, the DSA cell's design and spatial split): every
-    tile a ``causal_topk`` evaluation is asked lies in ``{d * e}``, no
-    stack holds more sizes than the bound, the histograms observe each
-    evaluation's tiles and table rows, and no intermediate of the kind
-    holds more than ``U x caps.coord`` elements."""
+    """Two small fused CPU searches of a layer built like attn_av (T
+    2,048, k 128, 512 columns, the DSA cell's design and spatial split):
+    the kind's forms run only to build the layer's table, once, before
+    the fused step, at the tensor's ``{d * e}`` (``engine.topk_table_rows``
+    counts 3, one a statistic, not 6); every tile the step asks lies in
+    ``{d * e}`` and its lookup answers finite, each lookup observed on
+    ``engine.topk_tiles``; no intermediate of a lookup holds more than
+    its stack or the table; and each winner passed the scalar oracle."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.core import matmul
     from repro_torch.core.batched import clear_caches
     from repro_torch.core.mapper import MapspaceConstraints
     from repro_torch.search import SearchConfig, run_search
+    from repro_torch.search import fused as F
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     from portbench.harness.config import Config
@@ -325,15 +331,32 @@ def test_a_search_asks_the_kind_only_at_products_of_divisors(monkeypatch):
 
     T, k = 2048, 128
     sizes = set(_products(T, T))
-    seen = []
-    real = port._by_distinct_tile
+    calls, seen, inside = [], [], [False]
 
-    def spy(fn, p, t, caps):
+    def spied(fn):
+        def spy(p, h, t, caps):
+            calls.append((fn.__name__, inside[0], caps,
+                          tuple(t.tolist())))
+            return fn(p, h, t, caps)
+        return spy
+    monkeypatch.setitem(port.TABLE_STATS, port.CAUSAL_TOPK_ID, tuple(
+        spied(fn) for fn in port.TABLE_STATS[port.CAUSAL_TOPK_ID]))
+    real_step, real_lookup = F.FusedProgram._step, port._table_lookup
+
+    def step(self, st, wp):
+        inside[0] = True
+        try:
+            return real_step(self, st, wp)
+        finally:
+            inside[0] = False
+
+    def lookup(table, stat, t):
         with Largest() as big:
-            out = real(fn, p, t, caps)
-        seen.append((t.clone(), caps, big.numel, out))
+            out = real_lookup(table, stat, t)
+        seen.append((t.clone(), table, big.numel, out))
         return out
-    monkeypatch.setattr(port, "_by_distinct_tile", spy)
+    monkeypatch.setattr(F.FusedProgram, "_step", step)
+    monkeypatch.setattr(port, "_table_lookup", lookup)
     monkeypatch.setattr(obs.metrics, "REGISTRY", obs.metrics.Registry())
     cfg = Config.load("deepseek-v3.2-dsa-stc")
     design = cfg.program_design()
@@ -342,32 +365,79 @@ def test_a_search_asks_the_kind_only_at_products_of_divisors(monkeypatch):
         "B": ("dense", None)})
     clear_caches()
     try:
-        res = run_search(design, wl,
-                         MapspaceConstraints(spatial=cfg.spatial(design),
-                                             budget=64),
-                         strategy="es", key=5, generations=2, pop_size=32,
-                         fused=True, config=SearchConfig(fused_chunk=1),
-                         device="cpu", mesh=None)
+        results = [run_search(design, wl,
+                              MapspaceConstraints(
+                                  spatial=cfg.spatial(design), budget=64),
+                              strategy="es", key=key, generations=2,
+                              pop_size=32, fused=True,
+                              config=SearchConfig(fused_chunk=1),
+                              device="cpu", mesh=None) for key in (5, 6)]
     finally:
         clear_caches()
-    assert res.best is not None and res.best.result.valid
-    assert seen
-    caps = seen[0][1]
+    for res in results:
+        assert res.best is not None and res.best.result.valid
+    assert [(name, step_) for name, step_, *_ in calls] == [
+        (f"causal_topk_{s}_t", False) for s in STATS]
+    caps = calls[0][2]
     assert caps.tiles == port._pow2_cap(len(sizes)) == 32
-    for tiles, c, largest, out in seen:
+    assert all(t == tuple(map(float, sorted(sizes))) for *_, t in calls)
+    assert seen
+    for tiles, table, largest, out in seen:
         asked = set(tiles.view(-1).tolist())
         assert asked <= sizes, sorted(asked - sizes)
-        assert len(asked) <= c.tiles
         assert bool(torch.isfinite(out).all())
-        rows = min(c.tiles, tiles.numel())
-        assert largest <= max(rows * c.coord, tiles.numel()), \
-            (largest, rows, c.coord)
+        assert table.shape == (4, caps.tiles)
+        assert largest <= max(table.numel(), tiles.numel()), largest
     snap = obs.metrics.snapshot()
     told, rows = snap["engine.topk_tiles"], snap["engine.topk_table_rows"]
-    assert told["count"] == rows["count"] == len(seen)
+    assert told["count"] == len(seen)
     assert told["sum"] == sum(t.numel() for t, *_ in seen)
-    assert rows["sum"] == sum(min(c.tiles, t.numel()) for t, c, *_ in seen)
-    assert rows["max"] <= 32 < told["min"]
+    assert (rows["count"], rows["sum"]) == (3, 3 * len(sizes))
+
+
+@pytest.mark.parametrize("kind", ["causal_topk", "causal_block_topk"])
+def test_the_leaf_equals_the_instance_route(kind):
+    """The engine's table of a 2,048^2 causal_topk tensor (k 128) and of
+    a 96^2 causal_block_topk one (block 8, k 2, init 1, local 1): its
+    sizes are the tensor's sorted ``{d * e}``, padded with the largest
+    and its answers to the caps' width; at the model's own caps its
+    three rows equal the instance wrappers (``_by_distinct_tile`` on a
+    table of as many rows) at every size bit for bit (``torch.equal``),
+    and at the engine's caps the in-graph table route the engine took
+    before the leaf (``_by_distinct_tile`` at those caps); a size that
+    is no ``d * e`` answers NaN through the lookup."""
+    m = (port.CausalTopkModel(rows=2048, cols=2048, window=2048, k=128)
+         if kind == "causal_topk"
+         else port.CausalBlockTopkModel(96, 96, 8, 2, 1, 1))
+    sizes = _products(m.rows, m.cols)
+    tt = torch.tensor(sizes, dtype=torch.float64)
+    own = port.stat_table(m.kind_id, m.params(), m._self_caps())
+    assert own.shape == (4, len(sizes))
+    assert torch.equal(own[0], tt)
+    for j, name in enumerate(STATS, 1):
+        assert torch.equal(own[j], getattr(m, name + "_b")(tt)), name
+    caps = port.caps_for_models([m])
+    table = port.stat_table(m.kind_id, m.params(), caps)
+    assert table.shape == (4, caps.tiles) and caps.tiles > len(sizes)
+    pad = table[:, len(sizes):]
+    assert torch.equal(pad, table[:, len(sizes) - 1:len(sizes)].expand_as(
+        pad))
+    assert float(pad[0, 0]) == sizes[-1]
+    params = torch.as_tensor(m.params())
+    for j, fn in enumerate(port.TABLE_STATS[m.kind_id], 1):
+        assert torch.equal(table[j, :len(sizes)], port._by_distinct_tile(
+            fn, params, tt, caps)), fn.__name__
+    stats = port.TracedDensityStats(caps)
+    odd = [next(t for t in range(1, sizes[-1]) if t not in set(sizes)),
+           sizes[-1] + 1]
+    asked = torch.tensor([[sizes[0], odd[0]], [odd[1], sizes[-1]]],
+                         dtype=torch.float64)
+    for j, name in enumerate(STATS, 1):
+        got = getattr(stats, name)(m.kind_id, params, None, asked,
+                                   table=table)
+        assert bool(got[0, 1].isnan() and got[1, 0].isnan()), (name, got)
+        assert torch.equal(got[[0, 1], [0, 1]],
+                           table[j, [0, len(sizes) - 1]]), name
 
 
 # ----------------------------------------------------------------------
@@ -391,19 +461,24 @@ def test_a_malformed_k_or_window_is_refused(bad):
 # what the other configurations pay: nothing
 # ----------------------------------------------------------------------
 #: non-view aten ops of one warm ``traced_single`` call (PERF.md §5; the
-#: DSA cell's attn_av is the kind's own program)
+#: DSA and MSA cells' attn_av are the table kinds' programs, which look
+#: their statistics up in the layer's table)
 OPS = {("scnn-resnet50", "conv2_x"): 1213,
        ("eyeriss-v2saf-mobilenet", "pw1"): 1235,
        ("deepseek-v2-lite-stc", "mla_q_proj"): 985,
        ("deepseek-v2-lite-stc", "attn_av"): 1214,
-       ("deepseek-v3.2-dsa-stc", "mla_q_a_proj"): 985}
+       ("deepseek-v3.2-dsa-stc", "mla_q_a_proj"): 985,
+       ("deepseek-v3.2-dsa-stc", "attn_av"): 955,
+       ("minimax-m3-msa-stc", "attn_av"): 955}
 
 
 @pytest.mark.parametrize("config, layer", sorted(OPS),
                          ids=lambda x: x if isinstance(x, str) else "")
 def test_the_benchmark_programs_dispatch_the_ops_they_did(config, layer):
     """Each configuration's program, as a small fused CPU search runs it:
-    one warm call dispatches the ops it did before the kind came."""
+    one warm call dispatches the ops it did before the kind came, and
+    attn_av's of the DSA and MSA cells only their statistics' lookups
+    besides (their tables are built before the call)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.core.batched import BucketedModel
@@ -524,21 +599,23 @@ def test_cuda_the_tensor_forms_equal_the_cpus():
 def test_cuda_the_table_equals_the_direct_forms_at_the_cells_stacks():
     """On the card, a generation's stacks at attn_av's P and the cell's
     caps ((1,024, 6) and (1,024, 4) tiles of its 31 sizes): each
-    statistic through ``TracedDensityStats``' table equals the direct
-    forms to 1e-13 relative."""
+    statistic looked up through ``TracedDensityStats`` in the table
+    built on the card equals the direct forms to 1e-13 relative."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     n = 32768
     m = port.CausalTopkModel(rows=n, cols=n, window=n, k=2048)
     caps = port.caps_for_models([m])
     stats = port.TracedDensityStats(caps)
+    table = port.stat_table(m.kind_id, m.params(), caps, "cuda")
     params = torch.as_tensor(m.params()).cuda()
     g = torch.Generator().manual_seed(31)
     for name, q in zip(STATS, (6, 4, 4)):
         tiles = (2.0 ** torch.randint(0, 31, (1024, q), generator=g)).cuda()
         direct = getattr(port, f"causal_topk_{name}_t")(params, None, tiles,
                                                         caps)
-        got = getattr(stats, name)(m.kind_id, params, None, tiles)
+        got = getattr(stats, name)(m.kind_id, params, None, tiles,
+                                   table=table)
         torch.testing.assert_close(got, direct, rtol=1e-13, atol=0,
                                    msg=name)
         del direct
